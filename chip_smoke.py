@@ -8,16 +8,28 @@ Run from the repository root:  python3 chip_smoke.py
    32, 64, 128, with padding and ill-conditioned (guarded) systems;
 4. K2 (fused masked scorer) against its plain version on one
    MovieLens-20M-width serving block, bf16 and f32 score buffers;
-5. the main path as ``bench.py`` runs it: ALS-WR rank 64 on the
-   ML-20M-shaped synthetic set, bucketed layout (8 groups), bf16 gathers,
-   4 epochs with held-out RMSE, held to the reference trajectory;
-6. serving: ``Recommender.precompute_all`` through K2 for every user,
+5. the row-gather kernel against ``table[idx]`` and ``torch.gather``, bit
+   for bit, at widths 64/128, bf16/f32, int32/int64 indices, from the
+   26,744-row and 480,189-row tables;
+6. the main path as ``bench.py`` runs it: ALS-WR rank 64 on the
+   ML-20M-shaped synthetic set, bucketed layout (8 groups), bf16 gathers
+   through the fused gather -> Gram kernel (first held to its bound on
+   the smallest-R and largest-R blocks of both layouts), 4 epochs with
+   held-out RMSE, held to the reference trajectory;
+7. serving: ``Recommender.precompute_all`` through K2 for every user,
    checked against the exact scorer on a sample, plus single and batch
    requests;
-7. both kernels must have launched on the main path.
+8. the blocked-layout path (``ALSWR``, ``ImplicitALS``: row gather,
+   sorted-segment sums, K1) at full width: every block's gather bit-equal
+   to plain indexing, then the path against the bucketed path with f32
+   gathers from the same start, held-out RMSE to 1e-4;
+9. fold-in of 256 users against a float64 solve, no rated item served;
+10. the two gather probes at a reduced size.
 
-Every failed check raises, so the exit code is nonzero. Stdout ends with a
-JSON line of per-kernel results and, last, ``{"ok": true, "device": ...}``.
+Every path runs with the kernels' launch counts set to 0 just before it,
+and each kernel must have launched on the paths that use it. Every failed
+check raises, so the exit code is nonzero. Stdout ends with a JSON line of
+per-kernel results and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -51,6 +63,18 @@ BF16_REL = 2.0 ** -7
 # bench.py's main path (BASELINE.json config 3): ML-20M shape, rank 64
 MAIN = dict(n_users=138_493, n_items=26_744, n_ratings=20_000_263, rank=64,
             lam=0.05, groups=8)
+# PR 1's s/epoch on this path, epochs 2-4 (NVIDIA H100 80GB HBM3, 700 W)
+PR1_S_EPOCH = 0.1175
+# The blocked path against the bucketed path, same start, f32 gathers:
+# the two sum the same products in other orders.
+BLOCKED_RMSE_TOL = 1e-4
+IALS = dict(lam=0.1, alpha=40.0)  # IALSConfig's defaults
+# fold-in rows (f32, row gather + K1) against a float64 solve of the same
+# systems: f32 Cholesky's forward error is about cond(A) * n * 6e-8.
+FOLD_RTOL = 1e-3
+FOLD_USERS = 256
+GATHER_ROWS = 65_536  # the TPU gather bench's rows per step
+GATHER_TABLES = (26_744, 480_189)  # ML-20M items, Netflix users
 
 
 def log(*a):
@@ -191,6 +215,119 @@ def phase_k2(dev) -> dict:
     return out
 
 
+def phase_gather(dev) -> dict:
+    from ycnr_tpu_torch.ops.row_gather import (row_gather_cuda,
+                                               row_gather_reference,
+                                               take_along_rows_cuda,
+                                               take_along_rows_reference)
+
+    rng = np.random.default_rng(11)
+    out = {}
+    for n in GATHER_TABLES:
+        for w in (64, 128):
+            base = rng.standard_normal((n, w), dtype=np.float32)
+            for dt in (torch.bfloat16, torch.float32):
+                table = torch.as_tensor(base, device=dev).to(dt)
+                for it in (torch.int32, torch.int64):
+                    idx = torch.as_tensor(
+                        rng.integers(0, n, GATHER_ROWS), device=dev).to(it)
+                    got = row_gather_cuda(table, idx)
+                    want = row_gather_reference(table, idx)
+                    idx2 = idx[:, None].expand(GATHER_ROWS, w).contiguous()
+                    got2 = take_along_rows_cuda(table, idx2)
+                    want2 = take_along_rows_reference(table, idx2)
+                    sync()
+                    name = (f"n={n} w={w} {str(dt)[6:]} "
+                            f"{str(it)[6:]}")
+                    check(torch.equal(got, want),
+                          f"row_gather {name}: bit-equal to table[idx]")
+                    check(torch.equal(got2, want2),
+                          f"take_along_rows {name}: bit-equal to "
+                          f"torch.gather")
+                    ms = cuda_ms(lambda: row_gather_cuda(table, idx))
+                    plain_ms = cuda_ms(lambda: row_gather_reference(table,
+                                                                    idx))
+                    tms = cuda_ms(lambda: take_along_rows_cuda(table, idx2))
+                    tplain = cuda_ms(lambda: take_along_rows_reference(
+                        table, idx2))
+                    log(f"row_gather {name} m={GATHER_ROWS}: bit-equal; "
+                        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                        f"take_along_rows kernel {tms:.4f} ms, plain "
+                        f"{tplain:.4f} ms")
+                    out[(n, w, str(dt)[6:], str(it)[6:])] = (ms, plain_ms)
+    # the blocked path's shape: f32 rank-64 rows of the items table
+    ms, plain_ms = out[(GATHER_TABLES[0], 64, "float32", "int32")]
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_fused_gram(state, dul, dil) -> dict:
+    """fused_gram against its plain two-step version on the main path's
+    own blocks (the start factors in bf16), then one user phase's normal
+    equations timed both ways."""
+    from ycnr_tpu_torch.ops.fused_gram import (fused_gram_bound,
+                                               fused_gram_cuda,
+                                               fused_gram_reference)
+
+    worst = 0.0
+    for side, lay, F in (("user", dul, state.V), ("item", dil, state.U)):
+        table = F.to(torch.bfloat16)
+        n_ent = (state.U if side == "user" else state.V).shape[0] - 1
+        for which, g in (("smallest", lay[0]), ("largest", lay[-1])):
+            # a group's last block holds its padding entities
+            oi, rr, eid = g.other_idx[-1], g.rating[-1], g.entity_ids[-1]
+            rat = rr.to(torch.bfloat16)
+            A, b = fused_gram_cuda(table, oi, rat)
+            Ap, bp = fused_gram_reference(table, oi, rat)
+            bA, bb = fused_gram_bound(table[oi].float(), rat)
+            sync()
+            errA = (A - Ap).abs()
+            errb = (b - bp).abs()
+            pad = eid == n_ent
+            name = (f"{side} layout, {which} R={oi.shape[1]}, "
+                    f"NE={oi.shape[0]}")
+            log(f"fused_gram {name}: max |A - plain| {errA.max().item():.3e}"
+                f", max |b - plain| {errb.max().item():.3e}, within the "
+                f"bound: {bool((errA <= bA).all() and (errb <= bb).all())}, "
+                f"A bit-symmetric: {torch.equal(A, A.transpose(1, 2))}, "
+                f"padding entities exactly 0: {int(pad.sum())}")
+            check(bool((errA <= bA).all()), f"fused_gram {name}: A in bound")
+            check(bool((errb <= bb).all()), f"fused_gram {name}: b in bound")
+            check(torch.equal(A, A.transpose(1, 2)),
+                  f"fused_gram {name}: A bit-symmetric")
+            check(bool((A[pad] == 0).all() and (b[pad] == 0).all()),
+                  f"fused_gram {name}: padding entities exactly 0")
+            worst = max(worst, errA.max().item(), errb.max().item())
+    table = state.V.to(torch.bfloat16)
+    blocks = [(oi, rr.to(torch.bfloat16)) for g in dul
+              for oi, rr in zip(g.other_idx, g.rating)]
+    ms = cuda_ms(lambda: [fused_gram_cuda(table, oi, r)
+                          for oi, r in blocks], iters=3, warmup=1)
+    plain_ms = cuda_ms(lambda: [fused_gram_reference(table, oi, r)
+                                for oi, r in blocks], iters=3, warmup=1)
+    log(f"fused_gram, one user phase's normal equations ({len(blocks)} "
+        f"blocks): kernel {ms:.3f} ms, plain gather -> f32 einsum "
+        f"{plain_ms:.3f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def reset_launches():
+    from ycnr_tpu_torch.ops import fused_gram, fused_topn, row_gather, \
+        spd_solve
+
+    for mod in (spd_solve, fused_topn, row_gather, fused_gram):
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    from ycnr_tpu_torch.ops import fused_gram, fused_topn, row_gather, \
+        spd_solve
+
+    return {"spd_solve": spd_solve.launches,
+            "fused_scores": fused_topn.launches,
+            "row_gather": row_gather.launches,
+            "fused_gram": fused_gram.launches}
+
+
 def ids_equal_up_to_ties(ids_a, vals_a, ids_b, vals_b, tol: float) -> bool:
     """Per row: the two top-n value lists agree within tol, and every id
     that only one side returned scores within tol of the row's n-th value
@@ -206,6 +343,135 @@ def ids_equal_up_to_ties(ids_a, vals_a, ids_b, vals_b, tol: float) -> bool:
     return True
 
 
+def phase_blocked(dev, tu, ti, tr, user_lay, dul, dil, test_coo) -> dict:
+    """ALSWR (2 epochs) and ImplicitALS (1 epoch) on the blocked layouts
+    against the bucketed path with f32 gathers, from init_state(seed=0)."""
+    from ycnr_tpu_torch.models import ALSWR, ImplicitALS
+    from ycnr_tpu_torch.models.base import (device_layout, init_state,
+                                            rmse_padded)
+    from ycnr_tpu_torch.models.bucketed_phase import (als_epoch_fn,
+                                                      ials_epoch_fn)
+    from ycnr_tpu_torch.ops.row_gather import row_gather_cuda
+    from ycnr_tpu_torch.shared import build_blocked_csr
+
+    n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
+                                                     "rank", "lam"))
+    t0 = time.time()
+    item_lay = build_blocked_csr(ti, tu, tr, n_items, n_users, 32,
+                                 rank_hint=rank)
+    log(f"blocked layouts: item layout built in {time.time() - t0:.1f} s; "
+        f"user blocks {user_lay.other_idx.shape}, item blocks "
+        f"{item_lay.other_idx.shape}")
+    dlu = device_layout(user_lay, torch.float32, dev)
+    dli = device_layout(item_lay, torch.float32, dev)
+    del item_lay
+
+    # Both sides of the RMSE comparison below run row_gather, so every
+    # block's gather is first held to plain indexing, at the shapes and
+    # index dtype this path gives the kernel, from the start factors.
+    st = init_state(n_users, n_items, rank, seed=0, device=dev)
+    for side, lay, F in (("user", dlu, st.V), ("item", dli, st.U)):
+        for j, oi in enumerate(lay.other_idx):
+            got = row_gather_cuda(F, oi)
+            check(torch.equal(got, F[oi]), f"row_gather, blocked {side} "
+                  f"layout block {j}: bit-equal to F[idx]")
+        oi = lay.other_idx[0]
+        ms = cuda_ms(lambda: row_gather_cuda(F, oi))
+        plain_ms = cuda_ms(lambda: F[oi])
+        log(f"row_gather, blocked {side} layout: {lay.other_idx.shape[0]} "
+            f"blocks of {tuple(oi.shape)} {str(oi.dtype)[6:]} indices into "
+            f"the [{F.shape[0]}, {F.shape[1]}] f32 table bit-equal to "
+            f"F[idx]; one block: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    del st, got
+
+    def run(epoch_fn, n_epochs):
+        st = init_state(n_users, n_items, rank, seed=0, device=dev)
+        out = []
+        for _ in range(n_epochs):
+            t0 = time.time()
+            st = epoch_fn(st)
+            sync()
+            out.append((float(rmse_padded(st, *test_coo)),
+                        time.time() - t0))
+        return out
+
+    sync()
+    reset_launches()
+    als = ALSWR(lam)
+    ials = ImplicitALS(**IALS)
+    b_als = run(lambda st: als.epoch(st, dlu, dli), 2)
+    b_ials = run(lambda st: ials.epoch(st, dlu, dli), 1)
+    launches = read_launches()
+    log(f"blocked path kernel launches: {launches}")
+    check(launches["row_gather"] > 0, "row_gather launched on the blocked "
+          "path")
+    check(launches["spd_solve"] > 0, "K1 launched on the blocked path")
+    k_als = run(als_epoch_fn(dul, dil, lam, gather_bf16=False), 2)
+    k_ials = run(ials_epoch_fn(dul, dil, IALS["lam"], IALS["alpha"],
+                               gather_bf16=False), 1)
+    for name, blocked, bucketed in (("ALSWR", b_als, k_als),
+                                    ("ImplicitALS", b_ials, k_ials)):
+        for ep, ((rb, tb), (rk, tk)) in enumerate(zip(blocked, bucketed)):
+            log(f"{name} epoch {ep + 1}: held-out rmse blocked {rb:.6f} "
+                f"({tb:.3f} s), bucketed f32 gathers {rk:.6f} ({tk:.3f} s), "
+                f"|diff| {abs(rb - rk):.2e}")
+            check(abs(rb - rk) <= BLOCKED_RMSE_TOL,
+                  f"{name} epoch {ep + 1}: blocked rmse within "
+                  f"{BLOCKED_RMSE_TOL} of the bucketed path's")
+    return launches
+
+
+def phase_fold_in(state, tu, ti, tr) -> dict:
+    """Fold in 256 sampled users from their training lists: rows within
+    FOLD_RTOL of a float64 solve on the card; no rated item served."""
+    from ycnr_tpu_torch.serve.fold_in import (_pad_lists, fold_in_users,
+                                              recommend_fold_in)
+
+    rng = np.random.default_rng(5)
+    users = np.sort(rng.choice(np.unique(tu), FOLD_USERS, replace=False))
+    order = np.argsort(tu, kind="stable")
+    tus, tis, trs = tu[order], ti[order], tr[order]
+    lo = np.searchsorted(tus, users)
+    hi = np.searchsorted(tus, users, "right")
+    items = [tis[a:b] for a, b in zip(lo, hi)]
+    ratings = [trs[a:b] for a, b in zip(lo, hi)]
+    lam = MAIN["lam"]
+
+    sync()
+    reset_launches()
+    rows = fold_in_users(state, items, ratings, lam=lam)
+    top_i, _ = recommend_fold_in(state, items, ratings, n=10, lam=lam)
+    sync()
+    launches = read_launches()
+    log(f"fold-in kernel launches: {launches}")
+    check(launches["row_gather"] > 0, "row_gather launched on fold-in")
+    check(launches["spd_solve"] > 0, "K1 launched on fold-in")
+
+    idx, r = _pad_lists(items, ratings, state.n_items, np.float64)
+    V = state.V.double()
+    it = torch.as_tensor(idx, device=V.device).long()
+    rt = torch.as_tensor(r, device=V.device)
+    Vr = V[it]
+    n_r = (it < state.n_items).sum(1).double()
+    eye = torch.eye(V.shape[1], dtype=torch.float64, device=V.device)
+    A = (torch.einsum("mlk,mle->mke", Vr, Vr)
+         + (lam * n_r + (n_r == 0))[:, None, None] * eye)
+    ref = torch.linalg.solve(A, torch.einsum("mlk,ml->mk", Vr, rt))
+    ref = ref.cpu().numpy()
+    rel = (np.abs(rows - ref).max(1)
+           / np.maximum(np.abs(ref).max(1), 1e-300))
+    served_rated = sum(len(set(t.tolist()) & set(i.tolist()))
+                       for t, i in zip(top_i, items))
+    log(f"fold-in of {FOLD_USERS} users (lists of {min(map(len, items))}"
+        f"-{max(map(len, items))} ratings): max rel err vs float64 "
+        f"{rel.max():.3e}; rated items served: {served_rated}")
+    check(rel.max() <= FOLD_RTOL, f"fold-in rows within {FOLD_RTOL} of "
+          f"float64")
+    check(served_rated == 0, "fold-in serves no rated item")
+    check(top_i.shape == (FOLD_USERS, 10), "fold-in top-10 shape")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -216,13 +482,14 @@ def main():
 
 def run(dev):
     import ycnr_tpu_torch
-    from ycnr_tpu_torch.eval.recommend import (_layout_tensors, _topn_blocks,
-                                               bits_tensor, build_rated_bits,
+    from ycnr_tpu_torch.eval.recommend import (_topn_blocks, bits_tensor,
+                                               build_rated_bits,
                                                recommend_all)
-    from ycnr_tpu_torch.models.base import init_state, rmse_padded
+    from ycnr_tpu_torch.models.base import (device_layout, init_state,
+                                            rmse_padded)
     from ycnr_tpu_torch.models.bucketed_phase import (als_epoch_fn,
                                                       device_bucketed)
-    from ycnr_tpu_torch.ops import _build, fused_topn, spd_solve
+    from ycnr_tpu_torch.ops import _build, fused_topn
     from ycnr_tpu_torch.serve.cache import RecCache
     from ycnr_tpu_torch.serve.engine import Recommender
     from ycnr_tpu_torch.shared import (build_blocked_csr, build_bucketed,
@@ -247,6 +514,8 @@ def run(dev):
     sync()
     k2 = phase_k2(dev)
     sync()
+    gather = phase_gather(dev)
+    sync()
 
     # ---- main path, exactly as bench.py runs it -------------------------
     n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
@@ -270,11 +539,11 @@ def run(dev):
     test_coo = tuple(torch.as_tensor(x, device=dev) for x in
                      pad_coo(su, si, sr, n_users, n_items, 8192)[:3]) + (
         len(sr),)
+    gram = phase_fused_gram(state, dul, dil)
     epoch = als_epoch_fn(dul, dil, lam, gather_bf16=True)
     sync()
 
-    spd_solve.launches = 0
-    fused_topn.launches = 0
+    reset_launches()
     rmse, times = [], []
     for ep in range(4):
         t0 = time.time()
@@ -289,17 +558,18 @@ def run(dev):
     n_cached = rec.precompute_all(n=10, method="fused")
     sync()
     precompute_s = time.time() - t0
-    launches = {"spd_solve": spd_solve.launches,
-                "fused_scores": fused_topn.launches}
+    launches = read_launches()
     log(f"main path kernel launches: {launches}")
     check(launches["spd_solve"] > 0, "K1 launched on the main path")
+    check(launches["fused_gram"] > 0,
+          "fused_gram launched on the main path")
     check(launches["fused_scores"] > 0, "K2 launched on the main path")
     for ep, (got, want) in enumerate(zip(rmse, ANCHOR_RMSE)):
         check(abs(got - want) <= RMSE_TOL,
               f"epoch {ep + 1} rmse {got:.6f} within {RMSE_TOL} of {want}")
     log(f"s/epoch, epochs 2-4: {times[1]:.4f} {times[2]:.4f} "
-        f"{times[3]:.4f} (median {float(np.median(times[1:])):.4f}) on "
-        f"{smi}")
+        f"{times[3]:.4f} (median {float(np.median(times[1:])):.4f}; PR 1: "
+        f"{PR1_S_EPOCH} on the same card type) on {smi}")
     n_rated = int(np.unique(tu).size)
     check(n_cached == n_rated, f"precompute_all cached {n_cached} of "
           f"{n_rated} rated users")
@@ -369,7 +639,7 @@ def run(dev):
     lay = build_blocked_csr(tu, ti, tr, n_users, n_items, 32, rank_hint=rank)
     bits = bits_tensor(build_rated_bits(lay, n_items), dev)
     eids = torch.as_tensor(lay.entity_ids, device=dev)
-    dlay = _layout_tensors(lay, dev)
+    dlay = device_layout(lay, torch.float32, dev)
     served = int((lay.entity_ids < n_users).sum())
     fused_ms = cuda_ms(lambda: fused_topn.fused_topn_blocks(
         state, eids, bits, 10), iters=3, warmup=1)
@@ -378,6 +648,24 @@ def run(dev):
     log(f"serving pass, {served:,} users top-10: fused {fused_ms:.1f} ms = "
         f"{served / fused_ms * 1e3:,.0f} recs/s; exact {exact_ms:.1f} ms = "
         f"{served / exact_ms * 1e3:,.0f} recs/s; on {smi}")
+    sync()
+
+    # ---- blocked-layout path vs the bucketed path (f32 gathers) --------
+    blocked_launches = phase_blocked(dev, tu, ti, tr, lay, dul, dil,
+                                     test_coo)
+    del lay, dlay, bits, eids
+    sync()
+
+    # ---- fold-in ---------------------------------------------------------
+    fold_launches = phase_fold_in(state, tu, ti, tr)
+    sync()
+
+    # ---- the gather probes, reduced --------------------------------------
+    from ycnr_tpu_torch.tools import bench_gather, probe_gather
+
+    probe_gather.main(["--m", "20", "--iters", "3", "--gram"])
+    bench_gather.main(["--steps", "5", "--gram"])
+    bench_gather.main(["--steps", "5", "--dtype", "f32"])
     sync()
 
     kernels = [
@@ -394,6 +682,22 @@ def run(dev):
          "max_abs_err": max(k2["bf16"]["max_abs_err"],
                             k2["f32"]["max_abs_err"]),
          "ms": k2["bf16"]["ms"], "plain_ms": k2["bf16"]["plain_ms"]},
+        {"name": "row_gather", "route": "cuda",
+         "source": "ycnr_tpu_torch/csrc/row_gather.cu",
+         "replaces": "tools/probe_gather.py:94, tools/probe_gather.py:136, "
+                     "tools/probe_gather.py:170, "
+                     "tools/bench_pallas_gather.py:106, "
+                     "tools/bench_pallas_gather.py:184",
+         "launches": blocked_launches["row_gather"]
+         + fold_launches["row_gather"],
+         "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
+         "plain_ms": gather["plain_ms"]},
+        {"name": "fused_gram", "route": "cuda",
+         "source": "ycnr_tpu_torch/csrc/fused_gram.cu",
+         "replaces": "tools/probe_gather.py:207",
+         "launches": launches["fused_gram"],
+         "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
+         "plain_ms": gram["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""K1 and K2 on the card against their plain versions.
+"""The port's kernels on the card against their plain versions: K1, K2,
+the row gather (bit equality) and the fused gather -> Gram (its bound).
 
 Needs a CUDA device: every test skips without one. On a GPU machine, which
 has no JAX, run them without the suite's JAX conftest:
@@ -11,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from ycnr_tpu_torch.ops import fused_gram as fg
 from ycnr_tpu_torch.ops import fused_topn as ft
+from ycnr_tpu_torch.ops import row_gather as rg
 from ycnr_tpu_torch.ops import spd_solve as sp
 
 pytestmark = pytest.mark.cuda
@@ -84,3 +87,57 @@ def test_k2_refuses_f32_rows(dev):
         ft.fused_scores_cuda(rows, V, torch.zeros(128, device=dev),
                              torch.zeros(4, 4, dtype=torch.int32, device=dev),
                              True)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w", [3, 64, 128])
+def test_row_gather_is_bit_equal(dev, w, dtype, idx_dtype):
+    rng = np.random.default_rng(w)
+    table = torch.as_tensor(rng.normal(size=(5000, w)), device=dev).to(dtype)
+    idx = torch.as_tensor(rng.integers(0, 5000, (300, 7)),
+                          device=dev).to(idx_dtype)
+    before = rg.launches
+    got = rg.row_gather(table, idx)
+    idx2 = idx.reshape(-1, 1).expand(-1, w).contiguous()
+    got2 = rg.take_along_rows(table, idx2)
+    torch.cuda.synchronize()
+    assert rg.launches == before + 2
+    assert torch.equal(got, table[idx])
+    assert torch.equal(got2, torch.gather(table, 0, idx2.long()))
+
+
+@pytest.mark.parametrize("w", [10, 64, 128])
+@pytest.mark.parametrize("ne,R", [(300, 32), (40, 600), (4, 5000)])
+def test_fused_gram_within_bound(dev, w, ne, R):
+    rng = np.random.default_rng(R)
+    n = 2000
+    base = np.zeros((n + 1, w), np.float32)
+    base[:n] = rng.normal(size=(n, w))
+    idx = rng.integers(0, n, (ne, R))
+    idx[:, R // 2:] = n  # padding slots gather the zero row
+    idx[-1] = n  # one all-padding entity
+    rat = np.where(idx < n, rng.uniform(1, 5, (ne, R)), 0.0)
+    table = torch.as_tensor(base, device=dev).bfloat16()
+    it = torch.as_tensor(idx, device=dev)
+    rt = torch.as_tensor(rat, dtype=torch.float32, device=dev).bfloat16()
+    before = fg.launches
+    A, b = fg.fused_gram(table, it, rt)
+    Ap, bp = fg.fused_gram_reference(table, it, rt)
+    torch.cuda.synchronize()
+    assert fg.launches == before + 1
+    bA, bb = fg.fused_gram_bound(table[it].float(), rt)
+    assert torch.all((A - Ap).abs() <= bA)
+    assert torch.all((b - bp).abs() <= bb)
+    assert torch.equal(A, A.transpose(1, 2))
+    assert torch.all(A[-1] == 0) and torch.all(b[-1] == 0)
+
+
+def test_fused_gram_refuses_what_it_does_not_take(dev):
+    table = torch.zeros(10, 8, device=dev)
+    idx = torch.zeros(2, 4, dtype=torch.int32, device=dev)
+    rat = torch.zeros(2, 4, device=dev).bfloat16()
+    with pytest.raises(TypeError):
+        fg.fused_gram(table, idx, rat)  # f32 table
+    with pytest.raises(ValueError):
+        fg.fused_gram(torch.zeros(10, 129, device=dev).bfloat16(), idx, rat)

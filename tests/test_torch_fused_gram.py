@@ -1,0 +1,126 @@
+"""The port's fused gather -> Gram (``ops/fused_gram.py``) against the JAX
+package: T4 (``tools/probe_gather.py:pallas_fused_gram``) in Pallas
+interpret mode, and ``ycnr_tpu.models.bucketed_phase.bucket_normal_eq``
+with bf16 gathers, the function the bucketed ALS epoch runs.
+
+The two sides sum the same exact bf16 x bf16 products in f32 in other
+orders, so each entry is held to |A - A_jax| <= 2 R 2^-24 (|F|^T |F|) and
+|b - b_jax| <= 2 R 2^-24 (|F|^T |rat|).
+"""
+
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from ycnr_tpu.models import bucketed_phase as jbp
+from ycnr_tpu_torch.ops import fused_gram as fg
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _inputs(n, w, ne, R, seed, pad_frac=0.25):
+    """bf16 table with a zero trash row n, slots padded at the tail of each
+    entity (index n, rating 0), one all-padding entity."""
+    rng = np.random.default_rng(seed)
+    base = np.zeros((n + 1, w), np.float32)
+    base[:n] = rng.normal(0, 1, (n, w))
+    idx = rng.integers(0, n, (ne, R)).astype(np.int32)
+    rat = rng.uniform(1, 5, (ne, R)).astype(np.float32)
+    cnt = rng.integers(int(R * (1 - pad_frac)), R + 1, ne)
+    cnt[-1] = 0
+    pad = np.arange(R)[None, :] >= cnt[:, None]
+    idx[pad] = n
+    rat[pad] = 0
+    return base, idx, rat
+
+
+def _bounds(base, idx, rat):
+    """2 R 2^-24 (|F|^T |F|) and 2 R 2^-24 (|F|^T |rat|) in float64, on the
+    bf16-rounded inputs."""
+    F = np.abs(torch.as_tensor(base).bfloat16().double().numpy()[idx])
+    r = np.abs(torch.as_tensor(rat).bfloat16().double().numpy())
+    c = 2 * idx.shape[1] * 2.0 ** -24
+    return (c * np.einsum("urk,urm->ukm", F, F),
+            c * np.einsum("urk,ur->uk", F, r))
+
+
+def _port(base, idx, rat):
+    return fg.fused_gram(torch.as_tensor(base).bfloat16(),
+                         torch.as_tensor(idx),
+                         torch.as_tensor(rat).bfloat16())
+
+
+@pytest.mark.parametrize("R,ne", [(32, 64), (200, 12), (1000, 3)])
+def test_fused_gram_matches_bucket_normal_eq(R, ne):
+    base, idx, rat = _inputs(500, 64, ne, R, seed=R)
+    A, b = _port(base, idx, rat)
+    Fg = jnp.asarray(base, jnp.bfloat16)[jnp.asarray(idx)]
+    Aj, bj = jbp.bucket_normal_eq(Fg, jnp.asarray(rat), None, jnp.float32,
+                                  True)
+    bA, bb = _bounds(base, idx, rat)
+    assert A.dtype == b.dtype == torch.float32
+    assert np.all(np.abs(A.double().numpy() - np.asarray(Aj, np.float64))
+                  <= bA)
+    assert np.all(np.abs(b.double().numpy() - np.asarray(bj, np.float64))
+                  <= bb)
+    # the all-padding entity gathers only the zero row: exactly 0
+    assert torch.all(A[-1] == 0) and torch.all(b[-1] == 0)
+
+
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+def test_fused_gram_matches_t4(idx_dtype):
+    probe_path = os.path.join(REPO, "tools", "probe_gather.py")
+    spec = importlib.util.spec_from_file_location("tpu_probe_gather",
+                                                  probe_path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    R, ne, n, w = 32, 32, 300, 64
+    base, idx, rat = _inputs(n, w, ne, R, seed=7)
+    with pltpu.force_tpu_interpret_mode():
+        s = probe.pallas_fused_gram(
+            jnp.asarray(base, jnp.bfloat16), jnp.asarray(idx.reshape(-1)),
+            jnp.asarray(rat.reshape(-1), jnp.bfloat16), R=R, tile_ne=8)()
+    A, b = _port(base, idx.astype(idx_dtype), rat)
+    # the port's sum in the probe's own f32 reduction
+    sp = jax.jit(lambda A, b: jnp.sum(A) + jnp.sum(b))(
+        jnp.asarray(A.numpy()), jnp.asarray(b.numpy()))
+    x = np.concatenate([A.double().numpy().ravel(),
+                        b.double().numpy().ravel()])
+    bA, bb = _bounds(base, idx, rat)
+    # the entries' own bound, plus each side's rounding of a pairwise f32
+    # sum of N terms, ceil(log2 N) 2^-24 sum|x|
+    tol = (bA.sum() + bb.sum()
+           + 2 * np.ceil(np.log2(x.size)) * 2.0 ** -24 * np.abs(x).sum())
+    # tight enough to see b: a kernel that dropped it would fail
+    assert tol < abs(b.double().sum().item())
+    assert abs(float(s) - float(sp)) <= tol
+
+
+def test_fused_gram_split_arithmetic():
+    """A call with few entities cuts long rating lists into equal parts of
+    at least _MIN_PART slots; it never splits where that is impossible."""
+    for ne, R in [(8, 129_872), (32, 25_352), (3, 1000), (12_472, 56),
+                  (8, 300), (100, 4096)]:
+        s = fg._parts(ne, R)
+        assert R % s == 0
+        assert s == 1 or R // s >= fg._MIN_PART
+        assert s == 1 or ne * (s // 2) < fg._FILL_BLOCKS
+    assert fg._parts(12_472, 56) == 1
+    assert fg._parts(8, 129_872) > 1
+
+
+def test_fused_gram_cuda_refuses_cpu_tensors():
+    """No fallback: the kernel entry raises for a CPU tensor."""
+    base, idx, rat = _inputs(20, 8, 2, 4, seed=0)
+    with pytest.raises(ValueError):
+        fg.fused_gram_cuda(torch.as_tensor(base).bfloat16(),
+                           torch.as_tensor(idx),
+                           torch.as_tensor(rat).bfloat16())

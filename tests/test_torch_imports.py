@@ -38,7 +38,18 @@ _BLOCKED_IMPORT = textwrap.dedent("""
            if m.split(".")[0] in ("jax", "jaxlib", "orbax", "triton")]
     assert not bad, bad
     print(len(names), "modules")
+    print(" ".join(names))
 """)
+
+# the modules each slice added, the probes included
+_SLICE_MODULES = {
+    "ycnr_tpu_torch.models.als", "ycnr_tpu_torch.models.ials",
+    "ycnr_tpu_torch.ops.gram", "ycnr_tpu_torch.ops.row_gather",
+    "ycnr_tpu_torch.ops.fused_gram", "ycnr_tpu_torch.serve.fold_in",
+    "ycnr_tpu_torch.tools.probe_gather", "ycnr_tpu_torch.tools.bench_gather",
+    "ycnr_tpu_torch.ops.spd_solve", "ycnr_tpu_torch.ops.fused_topn",
+    "ycnr_tpu_torch.models.bucketed_phase", "ycnr_tpu_torch.train.loop",
+}
 
 
 def test_port_imports_without_jax_nvcc_or_triton():
@@ -47,7 +58,9 @@ def test_port_imports_without_jax_nvcc_or_triton():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 15  # every module of the slice
+    count, names = res.stdout.splitlines()[:2]
+    assert int(count.split()[0]) >= 23  # every module of the port
+    assert _SLICE_MODULES <= set(names.split())
 
 
 def test_build_command_targets_sm_90a():
@@ -57,9 +70,20 @@ def test_build_command_targets_sm_90a():
     assert cmd[-3:] == ["lib.so", "a.cu", "b.cu"]
 
 
+def test_compile_command_is_the_build_command_per_source():
+    """Each source compiles alone (all started together) with the link
+    command's flags, -c in place of -shared."""
+    cmd = _build.compile_command("nvcc", "a.cu", "a.o")
+    link = _build.nvcc_command("nvcc", ["a.cu"], "a.o")
+    assert "-shared" not in cmd and "-c" in cmd
+    assert [x for x in cmd if x != "-c"] == [x for x in link
+                                             if x != "-shared"]
+
+
 def test_kernel_sources_are_in_the_package():
     names = sorted(os.path.basename(s) for s in _build.sources())
-    assert names == ["fused_topn.cu", "spd_solve.cu"]
+    assert names == ["fused_gram.cu", "fused_topn.cu", "row_gather.cu",
+                     "spd_solve.cu"]
 
 
 def test_only_the_shared_module_imports_the_jax_package():

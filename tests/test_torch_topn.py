@@ -13,6 +13,7 @@ from ycnr_tpu.models.base import device_layout
 from ycnr_tpu.ops.layout import build_blocked_csr
 from ycnr_tpu.ops.pallas_topn import fused_topn_blocks as j_fused
 from ycnr_tpu_torch.eval import recommend as trec
+from ycnr_tpu_torch.models.base import device_layout as t_device_layout
 from ycnr_tpu_torch.models.base import state_from_numpy
 from ycnr_tpu_torch.ops import fused_topn as tft
 
@@ -72,7 +73,7 @@ def test_exact_scorer_matches_jax_f64(bits):
     tb = trec.bits_tensor(trec.build_rated_bits(lay, 2000), "cpu") \
         if bits else None
     ij, vj = jrec._topn_blocks(js, device_layout(lay, jnp.float64), n, jb)
-    it, vt = trec._topn_blocks(ts, trec._layout_tensors(lay, "cpu"), n, tb)
+    it, vt = trec._topn_blocks(ts, t_device_layout(lay), n, tb)
     _assert_same_up_to_ties(_per_user(it.numpy()), _per_user(vt.numpy()),
                             _per_user(ij), _per_user(vj), atol=1e-9)
 
@@ -101,7 +102,7 @@ def test_fused_matches_pallas_interpret_and_exact(score_bf16):
     _assert_same_up_to_ties(got_i, got_v, _per_user(ij)[real],
                             _per_user(vj)[real], atol=0)
     # and == the exact scorer (integer scores: exact in bf16)
-    ie, ve = trec._topn_blocks(ts, trec._layout_tensors(lay, "cpu"), n,
+    ie, ve = trec._topn_blocks(ts, t_device_layout(lay), n,
                                trec.bits_tensor(bits, "cpu"))
     _assert_same_up_to_ties(got_i, got_v, _per_user(ie.numpy())[real],
                             _per_user(ve.numpy())[real], atol=0)

@@ -43,3 +43,12 @@ def test_train_rmse_history_matches_jax(tmp_path, algo):
 def test_train_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         ttrain(dataclasses.replace(CFG, algorithm="sgd"), device="cpu")
+
+
+def test_train_without_a_device_needs_cuda():
+    """device=None means CUDA; without a card it raises instead of
+    training on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None trains there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain(CFG)

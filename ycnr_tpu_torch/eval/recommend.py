@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ycnr_tpu_torch.models.base import MFState
+from ycnr_tpu_torch.models.base import MFState, device_layout
 from ycnr_tpu_torch.ops.fused_topn import (
     NEG_INF,
     fused_supported,
@@ -166,11 +166,6 @@ def _topn_blocks(state: MFState, layout: BlockedCSR, n: int,
     return torch.stack(ids), torch.stack(sc)
 
 
-def _layout_tensors(layout: BlockedCSR, device) -> BlockedCSR:
-    return BlockedCSR(*(torch.as_tensor(np.asarray(x), device=device)
-                        for x in layout))
-
-
 def recommend_all(state: MFState, user_layout: BlockedCSR, n: int = 10,
                   rated_bits=None, method: str = "exact"):
     """Top-N for every user with >= 1 training rating.
@@ -197,7 +192,8 @@ def recommend_all(state: MFState, user_layout: BlockedCSR, n: int = 10,
             state, torch.as_tensor(eids, device=dev), bits, n,
             score_bf16=(method != "fused32"))
     else:
-        ids, sc = _topn_blocks(state, _layout_tensors(user_layout, dev), n,
+        ids, sc = _topn_blocks(state, device_layout(user_layout,
+                                                    state.U.dtype, dev), n,
                                bits)
     eids = eids.reshape(-1)
     ids = ids.cpu().numpy().reshape(-1, n)

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ycnr_tpu_torch.shared import BlockedCSR
+
 
 class MFState(NamedTuple):
     """Factors + biases. ALS/iALS keep biases and mu at zero."""
@@ -83,6 +85,22 @@ def zero_cold_entities(state: MFState, train_u, train_i) -> MFState:
         V=torch.where(ai[:, None], state.V, zero),
         bu=torch.where(au, state.bu, zero),
         bi=torch.where(ai, state.bi, zero),
+    )
+
+
+def device_layout(layout: BlockedCSR, dtype=torch.float32,
+                  device="cpu") -> BlockedCSR:
+    """Move a host ``build_blocked_csr`` layout into tensors on ``device``:
+    indices as they are (int32), ratings and counts cast to ``dtype``."""
+    def t(x, dt=None):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+
+    return BlockedCSR(
+        other_idx=t(layout.other_idx),
+        rating=t(layout.rating, dtype),
+        chunk_seg=t(layout.chunk_seg),
+        entity_ids=t(layout.entity_ids),
+        entity_cnt=t(layout.entity_cnt, dtype),
     )
 
 

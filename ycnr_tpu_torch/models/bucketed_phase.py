@@ -4,8 +4,10 @@
 The layout is ``ycnr_tpu.ops.bucketed.build_bucketed``'s, unchanged: every
 entity of a group owns exactly R rating slots, so its Gram matrix is one
 batched product over the R axis. A phase walks each group block by block:
-gather the other factor's rows, build the normal equations, run the
-guarded batched solve (K1 on CUDA) and write the rows back.
+gather the other factor's rows (the row-gather kernel on CUDA), build the
+normal equations (for the main path, bf16 ALS-WR, both in one fused
+gather -> Gram kernel), run the guarded batched solve (K1 on CUDA) and
+write the rows back.
 
 The JAX package's scans become Python loops. A phase writes its solved rows
 into ``E`` in place: blocks of one phase read only the other factor, so the
@@ -20,7 +22,9 @@ from typing import Optional
 import torch
 
 from ycnr_tpu_torch.models.base import MFState, rmse_padded
+from ycnr_tpu_torch.ops.fused_gram import fused_gram
 from ycnr_tpu_torch.ops.gram import guarded_batched_solve
+from ycnr_tpu_torch.ops.row_gather import row_gather
 from ycnr_tpu_torch.shared import BucketedCSR, BucketGroup
 
 
@@ -92,12 +96,26 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor, groups: BucketedCSR,
     gather_bf16: gather the other factor in bfloat16 (half the gather
     bytes) with Gram sums in E's dtype, ~1e-3 relative on the normal
     equations.
+
+    On CUDA, ALS-WR with bf16 gathers into an f32 E (the main path) builds
+    each block's normal equations with the fused gather -> Gram kernel
+    (``ops/fused_gram.py``); every other case gathers with the row-gather
+    kernel (``ops/row_gather.py``) and runs ``bucket_normal_eq``. On the
+    CPU both are their plain versions, which is this function's plain
+    path.
     """
     F_g = F.to(torch.bfloat16) if gather_bf16 else F
+    fused = (E.is_cuda and alpha is None and gather_bf16
+             and E.dtype == torch.float32)
     for g in groups:
         for oi, rr, eid, cnt in zip(*g):
-            rows = bucket_solve_rows(F_g[oi], rr, cnt, lam, alpha,
-                                     base_gram, E.dtype, gather_bf16)
+            if fused:
+                A, b = fused_gram(F_g, oi, rr.to(torch.bfloat16))
+                rows = bucket_finish_solve(A, b, cnt, lam, alpha, base_gram)
+            else:
+                rows = bucket_solve_rows(row_gather(F_g, oi), rr, cnt, lam,
+                                         alpha, base_gram, E.dtype,
+                                         gather_bf16)
             E[eid] = rows.to(E.dtype)
     return E
 

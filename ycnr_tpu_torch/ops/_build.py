@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``ycnr_tpu_torch/csrc/*.cu``).
 
-The kernels are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface and loaded with ``ctypes``; nothing here includes
+The kernels are compiled at first use with ``nvcc``, one process per source
+started together, and linked into one shared library with a plain C
+interface and loaded with ``ctypes``; nothing here includes
 PyTorch's headers, so a build takes seconds. The library lands in
 ``ycnr_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed by a
 hash of the sources and the build command, so an edited kernel is rebuilt
@@ -33,6 +34,14 @@ def nvcc_command(nvcc: str, srcs: list[str], out: str) -> list[str]:
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", out, *srcs]
 
 
+def compile_command(nvcc: str, src: str, obj: str) -> list[str]:
+    """``nvcc_command``'s flags for one source compiled to an object, so
+    the sources compile in parallel before ``nvcc_command`` links them."""
+    cmd = nvcc_command(nvcc, [src], obj)
+    cmd[cmd.index("-shared")] = "-c"
+    return cmd
+
+
 def _find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
@@ -46,11 +55,17 @@ def _find_nvcc() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ycnr_spd_solve.argtypes = [p, p, p, i, i, p]
     lib.ycnr_spd_solve.restype = i
     lib.ycnr_fused_scores.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.ycnr_fused_scores.restype = i
+    lib.ycnr_row_gather.argtypes = [p, p, p, ll, ll, i, i, p]
+    lib.ycnr_row_gather.restype = i
+    lib.ycnr_take_along_rows.argtypes = [p, p, p, ll, i, i, ll, i, i, p]
+    lib.ycnr_take_along_rows.restype = i
+    lib.ycnr_fused_gram.argtypes = [p, p, p, p, p, ll, i, i, ll, i, p]
+    lib.ycnr_fused_gram.restype = i
     return lib
 
 
@@ -67,11 +82,23 @@ def load_library() -> ctypes.CDLL:
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        res = subprocess.run(nvcc_command(nvcc, srcs, tmp),
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+        procs = [subprocess.Popen(compile_command(nvcc, s, o),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        res = [(p.returncode, log) for p, log in zip(procs, logs)]
+        if all(rc == 0 for rc, _ in res):
+            link = subprocess.run(nvcc_command(nvcc, objs, tmp),
+                                  capture_output=True, text=True)
+            res.append((link.returncode, link.stdout + link.stderr))
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        bad = [f"rc {rc}:\n{log}" for rc, log in res if rc != 0]
+        if bad:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(bad))
         os.replace(tmp, out)
     return _declare(ctypes.CDLL(out))
 

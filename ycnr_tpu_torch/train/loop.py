@@ -67,12 +67,15 @@ def _log(record: dict):
 
 def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
           out_dir: Optional[str] = None, device=None) -> TrainResult:
-    """Train per config on ``device`` (default: the current CUDA device if
-    there is one, else the CPU)."""
+    """Train per config on ``device`` (default ``"cuda"``). Without a CUDA
+    device the default raises; a CPU run passes ``device="cpu"``."""
     _check_supported(cfg)
     full_precision_matmul()
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("train(): no CUDA device; pass device='cpu' "
+                               "for a CPU run")
+        device = "cuda"
     params = cfg.als if cfg.algorithm == "als" else cfg.ials
     ds = dataset or load_dataset(cfg.data, rank_hint=params.rank)
     out = out_dir if out_dir is not None else (
