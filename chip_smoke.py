@@ -5,17 +5,20 @@ Run from the repository root:  python3 chip_smoke.py
 1. device: needs CUDA (exits 1 without it; there is no CPU path);
 2. build: compiles the CUDA kernels from ``ycnr_tpu_torch/csrc``;
 3. K1 (batched SPD solve) against its plain version in float64, n = 10,
-   32, 64, 128, with padding and ill-conditioned (guarded) systems;
+   32, 64, 128, with padding and ill-conditioned (guarded) systems; timed
+   beside the plain solve and ``torch.linalg.solve``;
 4. K2 (fused masked scorer) against its plain version on one
    MovieLens-20M-width serving block, bf16 and f32 score buffers;
-5. the row-gather kernel against ``table[idx]`` and ``torch.gather``, bit
-   for bit, at widths 64/128, bf16/f32, int32/int64 indices, from the
-   26,744-row and 480,189-row tables;
+5. ``row_gather`` against ``table[idx]`` and ``take_along_rows`` against
+   ``torch.gather``, bit for bit, at widths 64/128, bf16/f32, int32/int64
+   indices, from the 26,744-row and 480,189-row tables; each timed beside
+   its plain version and that one PyTorch call;
 6. the main path as ``bench.py`` runs it: ALS-WR rank 64 on the
    ML-20M-shaped synthetic set, bucketed layout (8 groups), bf16 gathers
-   through the fused gather -> Gram kernel (first held to its bound on
-   the smallest-R and largest-R blocks of both layouts), 4 epochs with
-   held-out RMSE, held to the reference trajectory;
+   through the fused gather -> Gram kernel with the ridge in its epilogue
+   (first held to its bound on the smallest-R and largest-R blocks of both
+   layouts), then K1; 4 epochs with held-out RMSE, held to the reference
+   trajectory and to PR 2's; epoch 3 profiled by kernel;
 7. serving: ``Recommender.precompute_all`` through K2 for every user,
    checked against the exact scorer on a sample, plus single and batch
    requests;
@@ -24,12 +27,14 @@ Run from the repository root:  python3 chip_smoke.py
    to plain indexing, then the path against the bucketed path with f32
    gathers from the same start, held-out RMSE to 1e-4;
 9. fold-in of 256 users against a float64 solve, no rated item served;
-10. the two gather probes at a reduced size.
+10. the two gather probes at a reduced size (``take_along_rows``).
 
 Every path runs with the kernels' launch counts set to 0 just before it,
 and each kernel must have launched on the paths that use it. Every failed
-check raises, so the exit code is nonzero. Stdout ends with a JSON line of
-per-kernel results and, last, ``{"ok": true, "device": ...}``.
+check raises, so the exit code is nonzero. Stdout ends with the card's
+name and power limit (``nvidia-smi``), a JSON line of per-kernel results
+(time, plain time, one PyTorch call's time, bound) and, last,
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -63,8 +68,12 @@ BF16_REL = 2.0 ** -7
 # bench.py's main path (BASELINE.json config 3): ML-20M shape, rank 64
 MAIN = dict(n_users=138_493, n_items=26_744, n_ratings=20_000_263, rank=64,
             lam=0.05, groups=8)
-# PR 1's s/epoch on this path, epochs 2-4 (NVIDIA H100 80GB HBM3, 700 W)
+# s/epoch on this path, epochs 2-4, of the earlier slices (NVIDIA H100
+# 80GB HBM3, 700 W), and PR 2's held-out RMSE trajectory
 PR1_S_EPOCH = 0.1175
+PR2_S_EPOCH = 0.0507
+PR2_RMSE = (1.677441, 0.581494, 0.538312, 0.498509)
+PR2_RMSE_TOL = 1e-4
 # The blocked path against the bucketed path, same start, f32 gathers:
 # the two sum the same products in other orders.
 BLOCKED_RMSE_TOL = 1e-4
@@ -74,7 +83,13 @@ IALS = dict(lam=0.1, alpha=40.0)  # IALSConfig's defaults
 FOLD_RTOL = 1e-3
 FOLD_USERS = 256
 GATHER_ROWS = 65_536  # the TPU gather bench's rows per step
+GATHER_ITERS = 20  # calls per CUDA graph when timing a gather
 GATHER_TABLES = (26_744, 480_189)  # ML-20M items, Netflix users
+# H100 SXM peaks (NVIDIA data sheet) for bound_ms: HBM3 bytes/s, dense bf16
+# tensor-core and f32 CUDA-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
 
 
 def log(*a):
@@ -156,13 +171,24 @@ def phase_k1(dev) -> dict:
               f"K1 n={n}: max rel err < {K1_RTOL}")
         worst_rel = max(worst_rel, rel.max().item())
         worst_abs = max(worst_abs, err.max().item())
-    A, b, _ = guarded_systems(64, 20_000, seed=64, dev=dev)
-    ms = cuda_ms(lambda: spd_solve_cuda(A, b))
+    n, B = 64, 20_000
+    A, b, _ = guarded_systems(n, B, seed=64, dev=dev)
+    # in turns: plain, kernel, library, kernel, plain
     plain_ms = cuda_ms(lambda: spd_solve_reference(A, b))
-    log(f"K1 n=64 B=20000: kernel {ms:.4f} ms, plain (torch.linalg."
-        f"cholesky + cholesky_solve, f32) {plain_ms:.4f} ms")
+    ms = cuda_ms(lambda: spd_solve_cuda(A, b))
+    lib_ms = cuda_ms(lambda: torch.linalg.solve(A, b))
+    ms = min(ms, cuda_ms(lambda: spd_solve_cuda(A, b)))
+    plain_ms = min(plain_ms, cuda_ms(lambda: spd_solve_reference(A, b)))
+    # read A and b, write x; Cholesky n^3/3 + two triangular solves n^2 FMA
+    bnd = bound_ms(4 * B * (n * n + 2 * n),
+                   2 * B * (n ** 3 / 3 + n * n), PEAK_F32)
+    log(f"K1 n={n} B={B}: kernel {ms:.4f} ms, plain (torch.linalg."
+        f"cholesky + cholesky_solve, f32) {plain_ms:.4f} ms, "
+        f"torch.linalg.solve {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]})")
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
 
 
 def random_rated_bits(n_users: int, n_items: int, density: float, seed: int):
@@ -210,16 +236,39 @@ def phase_k2(dev) -> dict:
                                                score_bf16))
         plain_ms = cuda_ms(lambda: fused_scores_reference(
             rows, Vt, bit, bits, score_bf16), iters=3, warmup=1)
-        log(f"K2 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[name] = {"max_abs_err": diff, "ms": ms, "plain_ms": plain_ms}
+        # read rows, V, bias, bits; write segmax and s3; U.V^T in bf16
+        nbytes = (2 * (n_users + m) * k + 4 * m + bits.numel() * 4
+                  + seg_k.numel() * 4 + s3_k.numel() * s3_k.element_size())
+        bnd = bound_ms(nbytes, 2 * n_users * m * k, PEAK_BF16)
+        log(f"K2 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); no single PyTorch call computes "
+            f"masked scores with segment maxima")
+        out[name] = {"max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
     return out
 
 
+def bound_ms(nbytes: float, ops: float, peak: float):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type
+    (H100 SXM data sheet). Returns (ms, what sets it)."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / peak * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def phase_gather(dev) -> dict:
+    """row_gather against table[idx] and take_along_rows against
+    torch.gather (row-broadcast idx2, T3's form), bit for bit, in 16 cases;
+    each timed beside its plain version and one PyTorch call, as device
+    time (the calls take ~10-50 us, about what the host takes to launch
+    one). The timed calls rotate over copies of the inputs so that each
+    finds its table rows and indices cold, as its bound counts them."""
     from ycnr_tpu_torch.ops.row_gather import (row_gather_cuda,
                                                row_gather_reference,
                                                take_along_rows_cuda,
                                                take_along_rows_reference)
+    from ycnr_tpu_torch.tools.probe_gather import cold_sets, graph_ms
 
     rng = np.random.default_rng(11)
     out = {}
@@ -234,6 +283,7 @@ def phase_gather(dev) -> dict:
                     got = row_gather_cuda(table, idx)
                     want = row_gather_reference(table, idx)
                     idx2 = idx[:, None].expand(GATHER_ROWS, w).contiguous()
+                    idx2l = idx2.long()
                     got2 = take_along_rows_cuda(table, idx2)
                     want2 = take_along_rows_reference(table, idx2)
                     sync()
@@ -244,88 +294,198 @@ def phase_gather(dev) -> dict:
                     check(torch.equal(got2, want2),
                           f"take_along_rows {name}: bit-equal to "
                           f"torch.gather")
-                    ms = cuda_ms(lambda: row_gather_cuda(table, idx))
-                    plain_ms = cuda_ms(lambda: row_gather_reference(table,
-                                                                    idx))
-                    tms = cuda_ms(lambda: take_along_rows_cuda(table, idx2))
-                    tplain = cuda_ms(lambda: take_along_rows_reference(
-                        table, idx2))
-                    log(f"row_gather {name} m={GATHER_ROWS}: bit-equal; "
-                        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                        f"take_along_rows kernel {tms:.4f} ms, plain "
-                        f"{tplain:.4f} ms")
-                    out[(n, w, str(dt)[6:], str(it)[6:])] = (ms, plain_ms)
-    # the blocked path's shape: f32 rank-64 rows of the items table
-    ms, plain_ms = out[(GATHER_TABLES[0], 64, "float32", "int32")]
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+                    eb, ib = table.element_size(), idx.element_size()
+                    rows_read = int(torch.unique(idx).numel())
+                    row_bytes = (GATHER_ROWS * (ib + w * eb)
+                                 + rows_read * w * eb)
+                    take_bytes = (GATHER_ROWS * w * (ib + eb)
+                                  + rows_read * w * eb)
+                    rb = bound_ms(row_bytes, 0, PEAK_F32)
+                    tb = bound_ms(take_bytes, 0, PEAK_F32)
+                    # device time per call over CUDA graphs whose calls
+                    # rotate over copies of the inputs (cold L2), in turns:
+                    # plain, kernel, library, kernel
+                    sets = cold_sets((table, idx, idx2, idx2l),
+                                     min(row_bytes, take_bytes), GATHER_ITERS)
+
+                    def cold_ms(fn):
+                        return graph_ms(fn, GATHER_ITERS, sets=sets)
+
+                    plain_ms = cold_ms(
+                        lambda T, i, i2, i2l: row_gather_reference(T, i))
+                    ms = cold_ms(lambda T, i, i2, i2l: row_gather_cuda(T, i))
+                    lib_ms = cold_ms(lambda T, i, i2, i2l: T[i])
+                    ms = min(ms, cold_ms(
+                        lambda T, i, i2, i2l: row_gather_cuda(T, i)))
+                    tplain = cold_ms(lambda T, i, i2, i2l:
+                                     take_along_rows_reference(T, i2))
+                    tms = cold_ms(
+                        lambda T, i, i2, i2l: take_along_rows_cuda(T, i2))
+                    tlib = cold_ms(
+                        lambda T, i, i2, i2l: torch.gather(T, 0, i2l))
+                    tms = min(tms, cold_ms(
+                        lambda T, i, i2, i2l: take_along_rows_cuda(T, i2)))
+                    del sets
+                    log(f"gather {name} m={GATHER_ROWS} (cold L2): "
+                        f"bit-equal; "
+                        f"row_gather kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                        f" ms, table[idx] {lib_ms:.4f} ms, bound "
+                        f"{rb[0]:.4f} ms; take_along_rows kernel {tms:.4f} "
+                        f"ms, plain {tplain:.4f} ms, torch.gather (int64) "
+                        f"{tlib:.4f} ms, bound {tb[0]:.4f} ms")
+                    out[(n, w, str(dt)[6:], str(it)[6:])] = dict(
+                        row=dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=rb[0], bound_by=rb[1]),
+                        take=dict(ms=tms, plain_ms=tplain, library_ms=tlib,
+                                  bound_ms=tb[0], bound_by=tb[1]))
+    ratio = {k: v["take"]["ms"] / v["take"]["library_ms"]
+             for k, v in out.items()}
+    worst = max(ratio, key=ratio.get)
+    log(f"take_along_rows vs torch.gather: slower in "
+        f"{sum(r > 1 for r in ratio.values())} of {len(ratio)} cases; "
+        f"kernel / torch.gather from {min(ratio.values()):.3f} to "
+        f"{ratio[worst]:.3f} (at {worst})")
+    # the blocked path's shape (f32 rank-64 rows of the items table) and
+    # T3's probe form (bf16, int64 row-broadcast indices)
+    return {"row_gather": dict(out[(GATHER_TABLES[0], 64, "float32",
+                                    "int32")]["row"], max_abs_err=0.0),
+            "take_along_rows": dict(out[(GATHER_TABLES[0], 64, "bfloat16",
+                                         "int64")]["take"], max_abs_err=0.0)}
 
 
 def phase_fused_gram(state, dul, dil) -> dict:
-    """fused_gram against its plain two-step version on the main path's
-    own blocks (the start factors in bf16), then one user phase's normal
-    equations timed both ways."""
-    from ycnr_tpu_torch.ops.fused_gram import (fused_gram_bound,
+    """fused_gram with the main path's ridge against its plain version on
+    the main path's own blocks (the start factors in bf16): the smallest-R
+    and largest-R groups of both layouts, within the stated bound, A
+    bit-symmetric, padding entities exactly A = I, b = 0, and within
+    F64_REL of a float64 sum of the same products. Then one user phase's
+    normal equations timed both ways."""
+    from ycnr_tpu_torch.ops.fused_gram import (F64_REL, fused_gram_bound,
                                                fused_gram_cuda,
+                                               fused_gram_f64_error,
                                                fused_gram_reference)
 
+    lam = MAIN["lam"]
     worst = 0.0
     for side, lay, F in (("user", dul, state.V), ("item", dil, state.U)):
         table = F.to(torch.bfloat16)
         n_ent = (state.U if side == "user" else state.V).shape[0] - 1
         for which, g in (("smallest", lay[0]), ("largest", lay[-1])):
             # a group's last block holds its padding entities
-            oi, rr, eid = g.other_idx[-1], g.rating[-1], g.entity_ids[-1]
-            rat = rr.to(torch.bfloat16)
-            A, b = fused_gram_cuda(table, oi, rat)
-            Ap, bp = fused_gram_reference(table, oi, rat)
-            bA, bb = fused_gram_bound(table[oi].float(), rat)
+            oi, rat, eid = g.other_idx[-1], g.rating[-1], g.entity_ids[-1]
+            cnt = g.entity_cnt[-1]
+            reg = lam * cnt + (cnt == 0)
+            A, b = fused_gram_cuda(table, oi, rat, reg)
+            Ap, bp = fused_gram_reference(table, oi, rat, reg)
+            bA, bb = fused_gram_bound(table[oi].float(), rat, reg)
+            rel = fused_gram_f64_error(table, oi, rat, reg, A, b)
+            rel_plain = fused_gram_f64_error(table, oi, rat, reg, Ap, bp)
             sync()
             errA = (A - Ap).abs()
             errb = (b - bp).abs()
             pad = eid == n_ent
+            eye = torch.eye(A.shape[-1], device=A.device)
             name = (f"{side} layout, {which} R={oi.shape[1]}, "
                     f"NE={oi.shape[0]}")
-            log(f"fused_gram {name}: max |A - plain| {errA.max().item():.3e}"
-                f", max |b - plain| {errb.max().item():.3e}, within the "
-                f"bound: {bool((errA <= bA).all() and (errb <= bb).all())}, "
-                f"A bit-symmetric: {torch.equal(A, A.transpose(1, 2))}, "
-                f"padding entities exactly 0: {int(pad.sum())}")
+            log(f"fused_gram (ridge) {name}: max |A - plain| "
+                f"{errA.max().item():.3e}, max |b - plain| "
+                f"{errb.max().item():.3e}, largest share of the bound "
+                f"{(errA / bA.clamp_min(1e-30)).max().item():.3e}, within "
+                f"the bound: {bool((errA <= bA).all() and (errb <= bb).all())}"
+                f", A bit-symmetric: {torch.equal(A, A.transpose(1, 2))}, "
+                f"padding entities exactly A = I, b = 0: {int(pad.sum())}; "
+                f"against float64, relative to |F|^T|F| (+ reg I): A "
+                f"{rel[0]:.3e}, b {rel[1]:.3e} (plain f32: A "
+                f"{rel_plain[0]:.3e}, b {rel_plain[1]:.3e}; limit {F64_REL:.3e})")
             check(bool((errA <= bA).all()), f"fused_gram {name}: A in bound")
+            check(max(rel) <= F64_REL,
+                  f"fused_gram {name}: within {F64_REL:.3e} of float64")
             check(bool((errb <= bb).all()), f"fused_gram {name}: b in bound")
             check(torch.equal(A, A.transpose(1, 2)),
                   f"fused_gram {name}: A bit-symmetric")
-            check(bool((A[pad] == 0).all() and (b[pad] == 0).all()),
-                  f"fused_gram {name}: padding entities exactly 0")
+            check(bool(pad.any()), f"fused_gram {name}: has padding")
+            check(bool((A[pad] == eye).all() and (b[pad] == 0).all()),
+                  f"fused_gram {name}: padding entities exactly A = I, b = 0")
             worst = max(worst, errA.max().item(), errb.max().item())
     table = state.V.to(torch.bfloat16)
-    blocks = [(oi, rr.to(torch.bfloat16)) for g in dul
-              for oi, rr in zip(g.other_idx, g.rating)]
-    ms = cuda_ms(lambda: [fused_gram_cuda(table, oi, r)
-                          for oi, r in blocks], iters=3, warmup=1)
-    plain_ms = cuda_ms(lambda: [fused_gram_reference(table, oi, r)
-                                for oi, r in blocks], iters=3, warmup=1)
-    log(f"fused_gram, one user phase's normal equations ({len(blocks)} "
-        f"blocks): kernel {ms:.3f} ms, plain gather -> f32 einsum "
-        f"{plain_ms:.3f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    blocks = [(oi, rr, lam * c + (c == 0)) for g in dul
+              for oi, rr, c in zip(g.other_idx, g.rating, g.entity_cnt)]
+    plain_ms = cuda_ms(lambda: [fused_gram_reference(table, oi, r, reg)
+                                for oi, r, reg in blocks], iters=3, warmup=1)
+    ms = cuda_ms(lambda: [fused_gram_cuda(table, oi, r, reg)
+                          for oi, r, reg in blocks], iters=3, warmup=1)
+    ms = min(ms, cuda_ms(lambda: [fused_gram_cuda(table, oi, r, reg)
+                                  for oi, r, reg in blocks], iters=3,
+                         warmup=0))
+    w = table.shape[1]
+    slots = sum(oi.numel() for oi, _, _ in blocks)
+    ents = sum(oi.shape[0] for oi, _, _ in blocks)
+    # read idx, ratings, reg and the table (once per call); write A and b;
+    # the lower half of F^T F and b in bf16 on the tensor cores
+    nbytes = (slots * (blocks[0][0].element_size() + 2)
+              + ents * 4 * (1 + w * w + w) + len(blocks) * table.numel() * 2)
+    bnd = bound_ms(nbytes, slots * (w * (w + 1) + 2 * w), PEAK_BF16)
+    log(f"fused_gram (ridge), one user phase's normal equations "
+        f"({len(blocks)} blocks, {slots:,} slots, {ents:,} entities): "
+        f"kernel {ms:.3f} ms, plain gather -> f32 einsum -> ridge -> "
+        f"symmetrize {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
+        f"{bnd[0] / ms:.3f} of the bound; no single PyTorch call computes "
+        f"a gathered Gram")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
 
 
 def reset_launches():
-    from ycnr_tpu_torch.ops import fused_gram, fused_topn, row_gather, \
+    from ycnr_tpu_torch.ops import fused_gram, fused_topn, gram, row_gather, \
         spd_solve
 
     for mod in (spd_solve, fused_topn, row_gather, fused_gram):
         mod.launches = 0
+    row_gather.take_launches = 0
+    gram.guarded_solves = 0
 
 
 def read_launches() -> dict:
-    from ycnr_tpu_torch.ops import fused_gram, fused_topn, row_gather, \
+    from ycnr_tpu_torch.ops import fused_gram, fused_topn, gram, row_gather, \
         spd_solve
 
     return {"spd_solve": spd_solve.launches,
             "fused_scores": fused_topn.launches,
             "row_gather": row_gather.launches,
-            "fused_gram": fused_gram.launches}
+            "take_along_rows": row_gather.take_launches,
+            "fused_gram": fused_gram.launches,
+            "guarded_batched_solve (calls)": gram.guarded_solves}
+
+
+def profile_breakdown(fn, what: str):
+    """Run fn under torch.profiler and print the device time by kernel
+    (kernel events only, so nothing is counted twice). Returns fn's result
+    and the device milliseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+
+    def dev_us(e):
+        for a in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(e, a, None)
+            if v:
+                return v
+        return 0
+
+    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and dev_us(e) > 0), reverse=True)
+    total = sum(r[0] for r in rows) / 1e3
+    log(f"profile of {what}: {total:.3f} ms of device time by kernel")
+    for us, count, key in rows[:12]:
+        log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / total:5.1f}%  "
+            f"{count:5d}x  {key[:90]}")
+    return out, total
 
 
 def ids_equal_up_to_ties(ids_a, vals_a, ids_b, vals_b, tol: float) -> bool:
@@ -343,16 +503,18 @@ def ids_equal_up_to_ties(ids_a, vals_a, ids_b, vals_b, tol: float) -> bool:
     return True
 
 
-def phase_blocked(dev, tu, ti, tr, user_lay, dul, dil, test_coo) -> dict:
+def phase_blocked(dev, tu, ti, tr, user_lay, ul, il, test_coo) -> dict:
     """ALSWR (2 epochs) and ImplicitALS (1 epoch) on the blocked layouts
-    against the bucketed path with f32 gathers, from init_state(seed=0)."""
+    against the bucketed path (host layouts ul, il) with f32 gathers, from
+    init_state(seed=0)."""
     from ycnr_tpu_torch.models import ALSWR, ImplicitALS
     from ycnr_tpu_torch.models.base import (device_layout, init_state,
                                             rmse_padded)
     from ycnr_tpu_torch.models.bucketed_phase import (als_epoch_fn,
+                                                      device_bucketed,
                                                       ials_epoch_fn)
     from ycnr_tpu_torch.ops.row_gather import row_gather_cuda
-    from ycnr_tpu_torch.shared import build_blocked_csr
+    from ycnr_tpu_torch.ops.layout import build_blocked_csr
 
     n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
                                                      "rank", "lam"))
@@ -406,6 +568,8 @@ def phase_blocked(dev, tu, ti, tr, user_lay, dul, dil, test_coo) -> dict:
     check(launches["row_gather"] > 0, "row_gather launched on the blocked "
           "path")
     check(launches["spd_solve"] > 0, "K1 launched on the blocked path")
+    dul = device_bucketed(ul, torch.float32, dev)
+    dil = device_bucketed(il, torch.float32, dev)
     k_als = run(als_epoch_fn(dul, dil, lam, gather_bf16=False), 2)
     k_ials = run(ials_epoch_fn(dul, dil, IALS["lam"], IALS["alpha"],
                                gather_bf16=False), 1)
@@ -492,9 +656,10 @@ def run(dev):
     from ycnr_tpu_torch.ops import _build, fused_topn
     from ycnr_tpu_torch.serve.cache import RecCache
     from ycnr_tpu_torch.serve.engine import Recommender
-    from ycnr_tpu_torch.shared import (build_blocked_csr, build_bucketed,
-                                       pad_coo, synthetic_ratings,
-                                       train_test_split)
+    from ycnr_tpu_torch.data.split import train_test_split
+    from ycnr_tpu_torch.data.synthetic import synthetic_ratings
+    from ycnr_tpu_torch.ops.bucketed import build_bucketed
+    from ycnr_tpu_torch.ops.layout import build_blocked_csr, pad_coo
 
     ycnr_tpu_torch.full_precision_matmul()
     name = torch.cuda.get_device_name(dev)
@@ -533,8 +698,10 @@ def run(dev):
                         max_groups=MAIN["groups"])
     log(f"layouts: {time.time() - t0:.1f} s; user rows per group "
         f"{[g.rows for g in ul]}, item rows per group {[g.rows for g in il]}")
-    dul = device_bucketed(ul, torch.float32, dev)
-    dil = device_bucketed(il, torch.float32, dev)
+    dul = device_bucketed(ul, torch.float32, dev,
+                          rating_dtype=torch.bfloat16)
+    dil = device_bucketed(il, torch.float32, dev,
+                          rating_dtype=torch.bfloat16)
     state = init_state(n_users, n_items, rank, seed=0, device=dev)
     test_coo = tuple(torch.as_tensor(x, device=dev) for x in
                      pad_coo(su, si, sr, n_users, n_items, 8192)[:3]) + (
@@ -547,7 +714,11 @@ def run(dev):
     rmse, times = [], []
     for ep in range(4):
         t0 = time.time()
-        state = epoch(state)
+        if ep == 2:  # epoch 3: where the time goes, by kernel
+            state, dev_ms = profile_breakdown(lambda: epoch(state),
+                                              "epoch 3")
+        else:
+            state = epoch(state)
         sync()
         times.append(time.time() - t0)
         rmse.append(float(rmse_padded(state, *test_coo)))
@@ -563,13 +734,25 @@ def run(dev):
     check(launches["spd_solve"] > 0, "K1 launched on the main path")
     check(launches["fused_gram"] > 0,
           "fused_gram launched on the main path")
+    check(launches["guarded_batched_solve (calls)"] == 0,
+          "the fused branch runs no ridge or symmetrize pass "
+          "(no guarded_batched_solve)")
     check(launches["fused_scores"] > 0, "K2 launched on the main path")
-    for ep, (got, want) in enumerate(zip(rmse, ANCHOR_RMSE)):
+    for ep, (got, want, pr2) in enumerate(zip(rmse, ANCHOR_RMSE, PR2_RMSE)):
         check(abs(got - want) <= RMSE_TOL,
               f"epoch {ep + 1} rmse {got:.6f} within {RMSE_TOL} of {want}")
-    log(f"s/epoch, epochs 2-4: {times[1]:.4f} {times[2]:.4f} "
-        f"{times[3]:.4f} (median {float(np.median(times[1:])):.4f}; PR 1: "
-        f"{PR1_S_EPOCH} on the same card type) on {smi}")
+        check(abs(got - pr2) <= PR2_RMSE_TOL,
+              f"epoch {ep + 1} rmse {got:.6f} within {PR2_RMSE_TOL} of "
+              f"PR 2's {pr2} (only the summation order changed)")
+    wall = (times[1] + times[3]) / 2
+    log(f"s/epoch, epochs 2-4: {times[1]:.4f} {times[2]:.4f} (profiled) "
+        f"{times[3]:.4f}; epochs 2 and 4 mean {wall:.4f} (PR 2: "
+        f"{PR2_S_EPOCH}, PR 1: {PR1_S_EPOCH} on the same card type) on "
+        f"{smi}; epoch 3's device time is {dev_ms / 1e3 / wall:.3f} of that "
+        f"wall (device idle {max(0.0, 1 - dev_ms / 1e3 / wall):.3f})")
+    for ep, (got, want) in enumerate(zip(rmse, PR2_RMSE)):
+        log(f"epoch {ep + 1} rmse {got:.6f}: |diff| to PR 2's trajectory "
+            f"{abs(got - want):.2e}")
     n_rated = int(np.unique(tu).size)
     check(n_cached == n_rated, f"precompute_all cached {n_cached} of "
           f"{n_rated} rated users")
@@ -651,8 +834,8 @@ def run(dev):
     sync()
 
     # ---- blocked-layout path vs the bucketed path (f32 gathers) --------
-    blocked_launches = phase_blocked(dev, tu, ti, tr, lay, dul, dil,
-                                     test_coo)
+    del dul, dil, epoch
+    blocked_launches = phase_blocked(dev, tu, ti, tr, lay, ul, il, test_coo)
     del lay, dlay, bits, eids
     sync()
 
@@ -663,42 +846,60 @@ def run(dev):
     # ---- the gather probes, reduced --------------------------------------
     from ycnr_tpu_torch.tools import bench_gather, probe_gather
 
+    reset_launches()
     probe_gather.main(["--m", "20", "--iters", "3", "--gram"])
     bench_gather.main(["--steps", "5", "--gram"])
     bench_gather.main(["--steps", "5", "--dtype", "f32"])
     sync()
+    probe_launches = read_launches()
+    log(f"gather probes kernel launches: {probe_launches}")
+    check(probe_launches["take_along_rows"] > 0,
+          "take_along_rows launched on the probes")
 
+    row, take = gather["row_gather"], gather["take_along_rows"]
     kernels = [
         {"name": "spd_solve", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/spd_solve.cu",
          "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
          "launches": launches["spd_solve"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"]},
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
         {"name": "fused_scores", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/fused_topn.cu",
          "replaces": "ycnr_tpu/ops/pallas_topn.py:100",
          "launches": launches["fused_scores"],
          "max_abs_err": max(k2["bf16"]["max_abs_err"],
                             k2["f32"]["max_abs_err"]),
-         "ms": k2["bf16"]["ms"], "plain_ms": k2["bf16"]["plain_ms"]},
+         "ms": k2["bf16"]["ms"], "plain_ms": k2["bf16"]["plain_ms"],
+         "bound_ms": k2["bf16"]["bound_ms"],
+         "bound_by": k2["bf16"]["bound_by"], "library_ms": None},
         {"name": "row_gather", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/row_gather.cu",
          "replaces": "tools/probe_gather.py:94, tools/probe_gather.py:136, "
-                     "tools/probe_gather.py:170, "
                      "tools/bench_pallas_gather.py:106, "
                      "tools/bench_pallas_gather.py:184",
          "launches": blocked_launches["row_gather"]
          + fold_launches["row_gather"],
-         "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
-         "plain_ms": gather["plain_ms"]},
+         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": row["bound_by"], "library_ms": row["library_ms"]},
+        {"name": "take_along_rows", "route": "cuda",
+         "source": "ycnr_tpu_torch/csrc/row_gather.cu",
+         "replaces": "tools/probe_gather.py:170",
+         "launches": probe_launches["take_along_rows"],
+         "max_abs_err": take["max_abs_err"], "ms": take["ms"],
+         "plain_ms": take["plain_ms"], "bound_ms": take["bound_ms"],
+         "bound_by": take["bound_by"], "library_ms": take["library_ms"]},
         {"name": "fused_gram", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/fused_gram.cu",
          "replaces": "tools/probe_gather.py:207",
          "launches": launches["fused_gram"],
          "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
-         "plain_ms": gram["plain_ms"]},
+         "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
+         "bound_by": gram["bound_by"], "library_ms": None},
     ]
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

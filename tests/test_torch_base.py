@@ -21,7 +21,8 @@ def _np(x):
 @pytest.mark.parametrize("jdt,tdt", DTYPES)
 def test_init_state_bitwise(jdt, tdt):
     js = jbase.init_state(37, 23, 6, seed=5, dtype=jdt)
-    ts = tbase.init_state(37, 23, 6, seed=5, dtype=tdt)
+    ts = tbase.init_state(37, 23, 6, seed=5, dtype=tdt,
+                          device="cpu")
     for a, b in zip(js, tbase.to_numpy(ts)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(_np(a), b)
@@ -38,7 +39,8 @@ def _state_pair(seed=0):
     bu[-1] = bi[-1] = 0
     js = jbase.MFState(jnp.asarray(U), jnp.asarray(V), jnp.asarray(bu),
                        jnp.asarray(bi), jnp.asarray(0.7))
-    ts = tbase.state_from_numpy(U, V, bu, bi, 0.7, dtype=torch.float64)
+    ts = tbase.state_from_numpy(U, V, bu, bi, 0.7, dtype=torch.float64,
+                                device="cpu")
     return js, ts
 
 
@@ -88,3 +90,22 @@ def test_rmse_padded_matches(monkeypatch, chunk):
     rt = float(tbase.rmse_padded(ts, pu, pi, pr, n))
     assert abs(rj - rt) <= 1e-12
     assert rt > 0
+
+
+def test_init_state_without_a_device_needs_cuda(monkeypatch):
+    """device=None means the card; without one it raises and says how to
+    run on the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbase.init_state(5, 4, 3, seed=0)
+    assert tbase.init_state(5, 4, 3, seed=0, device="cpu").U.device.type \
+        == "cpu"
+
+
+def test_state_from_numpy_without_a_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    z = np.zeros((3, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbase.state_from_numpy(z, z, z[:, 0], z[:, 0], 0.0)
+    assert tbase.state_from_numpy(z, z, z[:, 0], z[:, 0], 0.0,
+                                  device="cpu").V.device.type == "cpu"

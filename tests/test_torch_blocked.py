@@ -16,7 +16,8 @@ from ycnr_tpu.ops import gram as jgram
 from ycnr_tpu_torch.models import ALSWR, ImplicitALS, device_layout
 from ycnr_tpu_torch.models import base as tbase
 from ycnr_tpu_torch.ops import gram as tgram
-from ycnr_tpu_torch.shared import build_blocked_csr, synthetic_ratings
+from ycnr_tpu_torch.data.synthetic import synthetic_ratings
+from ycnr_tpu_torch.ops.layout import build_blocked_csr
 
 torch.set_num_threads(1)
 
@@ -45,7 +46,8 @@ def _states(p):
     z = (np.zeros(NU + 1), np.zeros(NI + 1), 0.0)
     js = jbase.MFState(*(jnp.asarray(x, jnp.float64)
                          for x in (p["U0"], p["V0"], *z)))
-    ts = tbase.state_from_numpy(p["U0"], p["V0"], *z, dtype=torch.float64)
+    ts = tbase.state_from_numpy(p["U0"], p["V0"], *z, dtype=torch.float64,
+                                device="cpu")
     return js, ts
 
 

@@ -36,7 +36,7 @@ def problem():
 
 def _states(jdt, tdt):
     return (jbase.init_state(NU, NI, K, seed=1, dtype=jdt),
-            tbase.init_state(NU, NI, K, seed=1, dtype=tdt))
+            tbase.init_state(NU, NI, K, seed=1, dtype=tdt, device="cpu"))
 
 
 def _jtest(test, dt):
@@ -107,7 +107,7 @@ def test_epochs_match_f64(problem, algo):
     # one more epoch through the epoch closures, from the JAX factors
     j3 = one_j(js2)
     t3 = one_t(tbase.state_from_numpy(*[np.asarray(x) for x in js2],
-                                      dtype=torch.float64))
+                                      dtype=torch.float64, device="cpu"))
     for a, b in zip(j3[:2], t3[:2]):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-9,
                                    atol=1e-9)
@@ -142,3 +142,68 @@ def test_bf16_gather_rmse_matches_jax(problem):
         ts, tul, til, LAM, 2, _ttest(problem["test"], torch.float32),
         gather_bf16=True)
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=0, atol=1e-3)
+
+
+def test_bf16_rating_copy_is_the_jax_rounding(problem):
+    """device_bucketed(rating_dtype=torch.bfloat16) rounds each rating to
+    bf16 once, to the bits JAX's bf16 cast gives the same values; by
+    default the ratings stay in the layout's dtype."""
+    for lay in (problem["ul"], problem["il"]):
+        for g, dg, df in zip(lay, tbp.device_bucketed(
+                lay, torch.float32, rating_dtype=torch.bfloat16),
+                tbp.device_bucketed(lay, torch.float32)):
+            want = np.asarray(jnp.asarray(g.rating).astype(jnp.bfloat16))
+            assert np.array_equal(dg.rating.view(torch.int16).numpy(),
+                                  want.view(np.int16))
+            assert dg.entity_cnt.dtype == torch.float32
+            assert torch.equal(df.rating, torch.as_tensor(g.rating))
+
+
+def test_phase_refuses_ratings_of_another_dtype(problem):
+    """Off the fused branch the phase reads ratings in the factors' dtype,
+    so a bf16-rating layout (the fused branch's) raises instead of
+    training on rounded ratings."""
+    _, ts = _states(jnp.float32, torch.float32)
+    lay = tbp.device_bucketed(problem["ul"], torch.float32,
+                              rating_dtype=torch.bfloat16)
+    for gather_bf16 in (False, True):
+        with pytest.raises(ValueError, match="ratings"):
+            tbp.phase_bucketed(ts.U.clone(), ts.V, lay, LAM,
+                               gather_bf16=gather_bf16)
+
+
+@pytest.mark.parametrize("device,dtype,alpha,bf16,want", [
+    ("cuda", torch.float32, None, True, True),
+    ("cuda:0", torch.float32, None, True, True),
+    ("cpu", torch.float32, None, True, False),
+    ("cuda", torch.float32, ALPHA, True, False),
+    ("cuda", torch.float32, None, False, False),
+    ("cuda", torch.float64, None, True, False),
+])
+def test_uses_fused_only_for_bf16_als_on_cuda(device, dtype, alpha, bf16,
+                                              want):
+    assert tbp.uses_fused(device, dtype, alpha, bf16) is want
+
+
+def test_fused_branch_equals_bucket_solve_rows(problem):
+    """The main path's branch (fused gather -> Gram with the ridge, then the
+    solve), run on the CPU with the plain versions on the bf16-rating
+    layout, gives bit for bit what bucket_solve_rows gives with bf16
+    gathers on the f32 layout, block by block."""
+    from ycnr_tpu_torch.ops.row_gather import row_gather
+
+    _, ts = _states(jnp.float32, torch.float32)
+    for lay, F in ((problem["ul"], ts.V), (problem["il"], ts.U)):
+        F_g = F.to(torch.bfloat16)
+        for g, g16 in zip(tbp.device_bucketed(lay, torch.float32),
+                          tbp.device_bucketed(lay, torch.float32,
+                                              rating_dtype=torch.bfloat16)):
+            for j in range(g.other_idx.shape[0]):
+                oi, rr, cnt = g.other_idx[j], g.rating[j], g.entity_cnt[j]
+                got = tbp.bucket_fused_rows(F_g, oi, g16.rating[j], cnt,
+                                            LAM)
+                want = tbp.bucket_solve_rows(row_gather(F_g, oi), rr, cnt,
+                                             LAM, None, None, torch.float32,
+                                             True)
+                assert got.dtype == torch.float32
+                assert torch.equal(got, want)

@@ -1,5 +1,6 @@
 """The port's kernels on the card against their plain versions: K1, K2,
-the row gather (bit equality) and the fused gather -> Gram (its bound).
+the row gather and take-along gather (bit equality) and the fused
+gather -> Gram with and without the ridge (its bound, and a float64 sum).
 
 Needs a CUDA device: every test skips without one. On a GPU machine, which
 has no JAX, run them without the suite's JAX conftest:
@@ -97,40 +98,156 @@ def test_row_gather_is_bit_equal(dev, w, dtype, idx_dtype):
     table = torch.as_tensor(rng.normal(size=(5000, w)), device=dev).to(dtype)
     idx = torch.as_tensor(rng.integers(0, 5000, (300, 7)),
                           device=dev).to(idx_dtype)
-    before = rg.launches
+    before, before2 = rg.launches, rg.take_launches
     got = rg.row_gather(table, idx)
     idx2 = idx.reshape(-1, 1).expand(-1, w).contiguous()
     got2 = rg.take_along_rows(table, idx2)
     torch.cuda.synchronize()
-    assert rg.launches == before + 2
+    assert rg.launches == before + 1 and rg.take_launches == before2 + 1
     assert torch.equal(got, table[idx])
     assert torch.equal(got2, torch.gather(table, 0, idx2.long()))
 
 
+@pytest.mark.parametrize("broadcast", [True, False])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w,c", [(64, 64), (128, 128), (64, 40), (64, 37),
+                                 (10, 3)])
+def test_take_along_rows_is_bit_equal(dev, w, c, dtype, idx_dtype,
+                                      broadcast):
+    """Every width, c = w and c < w (aligned or not), both index and element
+    sizes, row-broadcast and per-element indices; odd m leaves a scalar
+    tail."""
+    rng = np.random.default_rng(c)
+    n, m = 3000, 1001
+    table = torch.as_tensor(rng.normal(size=(n, w)), device=dev).to(dtype)
+    if broadcast:
+        idx = rng.integers(0, n, (m, 1)).repeat(c, 1)
+    else:
+        idx = rng.integers(0, n, (m, c))
+    idx2 = torch.as_tensor(idx, device=dev).to(idx_dtype)
+    before = rg.take_launches
+    got = rg.take_along_rows(table, idx2)
+    torch.cuda.synchronize()
+    assert rg.take_launches == before + 1
+    assert torch.equal(got, torch.gather(table[:, :c], 0, idx2.long()))
+
+
+@pytest.mark.parametrize("which", ["table", "idx2"])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_take_along_rows_unaligned_views_are_bit_equal(dev, dtype, idx_dtype,
+                                                       which):
+    """A contiguous view one element past a 16-byte boundary takes the
+    scalar kernel; it too is bit-equal to torch.gather."""
+    rng = np.random.default_rng(3)
+    n, m, w = 3000, 1001, 64
+    table = torch.as_tensor(rng.normal(size=(n, w)), device=dev).to(dtype)
+    idx2 = torch.as_tensor(rng.integers(0, n, (m, 1)).repeat(w, 1),
+                           device=dev).to(idx_dtype)
+    if which == "table":
+        buf = torch.empty(n * w + 1, dtype=dtype, device=dev)
+        buf[1:].copy_(table.reshape(-1))
+        table = buf[1:].view(n, w)
+    else:
+        buf = torch.empty(m * w + 1, dtype=idx_dtype, device=dev)
+        buf[1:].copy_(idx2.reshape(-1))
+        idx2 = buf[1:].view(m, w)
+    assert table.is_contiguous() and idx2.is_contiguous()
+    assert (table.data_ptr() | idx2.data_ptr()) % 16 != 0
+    before = rg.take_launches
+    got = rg.take_along_rows(table, idx2)
+    torch.cuda.synchronize()
+    assert rg.take_launches == before + 1
+    assert torch.equal(got, torch.gather(table, 0, idx2.long()))
+
+
+@pytest.mark.parametrize("ridge", [False, True])
 @pytest.mark.parametrize("w", [10, 64, 128])
-@pytest.mark.parametrize("ne,R", [(300, 32), (40, 600), (4, 5000)])
-def test_fused_gram_within_bound(dev, w, ne, R):
+@pytest.mark.parametrize("ne,R", [(300, 32), (40, 600), (4, 5000), (50, 5)])
+def test_fused_gram_within_bound(dev, w, ne, R, ridge):
     rng = np.random.default_rng(R)
     n = 2000
     base = np.zeros((n + 1, w), np.float32)
     base[:n] = rng.normal(size=(n, w))
     idx = rng.integers(0, n, (ne, R))
-    idx[:, R // 2:] = n  # padding slots gather the zero row
+    idx[:, R // 2 + 1:] = n  # padding slots gather the zero row
     idx[-1] = n  # one all-padding entity
     rat = np.where(idx < n, rng.uniform(1, 5, (ne, R)), 0.0)
     table = torch.as_tensor(base, device=dev).bfloat16()
     it = torch.as_tensor(idx, device=dev)
     rt = torch.as_tensor(rat, dtype=torch.float32, device=dev).bfloat16()
+    cnt = (it < n).sum(1).float()
+    reg = 0.05 * cnt + (cnt == 0) if ridge else None
     before = fg.launches
-    A, b = fg.fused_gram(table, it, rt)
-    Ap, bp = fg.fused_gram_reference(table, it, rt)
+    A, b = fg.fused_gram(table, it, rt, reg=reg)
+    Ap, bp = fg.fused_gram_reference(table, it, rt, reg=reg)
     torch.cuda.synchronize()
     assert fg.launches == before + 1
-    bA, bb = fg.fused_gram_bound(table[it].float(), rt)
+    bA, bb = fg.fused_gram_bound(table[it].float(), rt, reg)
     assert torch.all((A - Ap).abs() <= bA)
     assert torch.all((b - bp).abs() <= bb)
+    assert max(fg.fused_gram_f64_error(table, it, rt, reg, A, b)) <= \
+        fg.F64_REL
     assert torch.equal(A, A.transpose(1, 2))
-    assert torch.all(A[-1] == 0) and torch.all(b[-1] == 0)
+    pad = torch.eye(w, device=dev) if ridge else torch.zeros(w, w, device=dev)
+    assert torch.equal(A[-1], pad) and torch.all(b[-1] == 0)
+
+
+def test_fused_gram_long_lists_against_float64(dev):
+    """Few entities with lists as long as the main path's longest (item
+    rung R = 129,872, 8 entities): the wrapper splits each list into
+    parts and sums them; the result stays within F64_REL of a float64 sum,
+    which a part lost from the sum would exceed."""
+    rng = np.random.default_rng(129_872)
+    n, w, ne, R = 26_744, 64, 8, 129_872
+    base = np.zeros((n + 1, w), np.float32)
+    base[:n] = rng.normal(0, 0.1, (n, w))
+    idx = rng.integers(0, n, (ne, R))
+    cnt = rng.integers(R // 3, R, ne)
+    idx[np.arange(R)[None, :] >= cnt[:, None]] = n  # padding slots
+    idx[-1] = n  # one all-padding entity
+    table = torch.as_tensor(base, device=dev).bfloat16()
+    it = torch.as_tensor(idx, device=dev)
+    rt = torch.as_tensor(np.where(idx < n, rng.uniform(1, 5, (ne, R)), 0.0),
+                         dtype=torch.float32, device=dev).bfloat16()
+    c = (it < n).sum(1).float()
+    reg = 0.05 * c + (c == 0)
+    assert fg._parts(ne, R)[0] > 1
+    A, b = fg.fused_gram(table, it, rt, reg=reg)
+    Ap, bp = fg.fused_gram_reference(table, it, rt, reg=reg)
+    torch.cuda.synchronize()
+    bA, bb = fg.fused_gram_bound(table[it].float(), rt, reg)
+    assert torch.all((A - Ap).abs() <= bA)
+    assert torch.all((b - bp).abs() <= bb)
+    assert max(fg.fused_gram_f64_error(table, it, rt, reg, A, b)) <= \
+        fg.F64_REL
+    assert torch.equal(A, A.transpose(1, 2))
+    assert torch.equal(A[-1], torch.eye(w, device=dev))
+    assert torch.all(b[-1] == 0)
+
+
+def test_fused_branch_refuses_f32_ratings(dev):
+    """On CUDA, bf16 ALS-WR runs the fused branch, which reads the layout's
+    bf16 ratings as they are and raises on any other."""
+    from ycnr_tpu_torch.models import bucketed_phase as bp
+    from ycnr_tpu_torch.models.base import init_state
+    from ycnr_tpu_torch.ops.bucketed import build_bucketed
+
+    rng = np.random.default_rng(0)
+    nu, ni, k = 50, 40, 8
+    u, i = rng.integers(0, nu, 600), rng.integers(0, ni, 600)
+    r = rng.uniform(1, 5, 600).astype(np.float32)
+    lay = build_bucketed(u, i, r, nu, ni, 8, k, max_groups=2)
+    st = init_state(nu, ni, k, seed=0, device=dev)
+    assert bp.uses_fused(dev, torch.float32, None, True)
+    with pytest.raises(ValueError, match="ratings"):
+        bp.phase_bucketed(st.U, st.V, bp.device_bucketed(lay, device=dev),
+                          0.05, gather_bf16=True)
+    E = bp.phase_bucketed(st.U, st.V, bp.device_bucketed(
+        lay, device=dev, rating_dtype=torch.bfloat16), 0.05,
+        gather_bf16=True)
+    assert bool(torch.isfinite(E).all())
 
 
 def test_fused_gram_refuses_what_it_does_not_take(dev):

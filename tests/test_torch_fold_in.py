@@ -11,7 +11,7 @@ from ycnr_tpu.models import base as jbase
 from ycnr_tpu.serve import fold_in as jfi
 from ycnr_tpu_torch.models import base as tbase
 from ycnr_tpu_torch.serve import fold_in as tfi
-from ycnr_tpu_torch.shared import synthetic_ratings
+from ycnr_tpu_torch.data.synthetic import synthetic_ratings
 
 torch.set_num_threads(1)
 
@@ -31,7 +31,7 @@ def setup():
     js = js._replace(mu=jnp.asarray(3.0, jnp.float64),
                      bi=jnp.asarray(bi, jnp.float64))
     ts = tbase.state_from_numpy(*[np.asarray(x) for x in js],
-                                dtype=torch.float64)
+                                dtype=torch.float64, device="cpu")
     return u, i, r, js, ts
 
 

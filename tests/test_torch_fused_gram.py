@@ -105,16 +105,17 @@ def test_fused_gram_matches_t4(idx_dtype):
 
 
 def test_fused_gram_split_arithmetic():
-    """A call with few entities cuts long rating lists into equal parts of
-    at least _MIN_PART slots; it never splits where that is impossible."""
+    """A call with few entities cuts long rating lists into parts of at
+    least _MIN_PART slots (the last may be shorter) that cover the list;
+    it never splits where that is impossible or not needed."""
     for ne, R in [(8, 129_872), (32, 25_352), (3, 1000), (12_472, 56),
-                  (8, 300), (100, 4096)]:
-        s = fg._parts(ne, R)
-        assert R % s == 0
-        assert s == 1 or R // s >= fg._MIN_PART
-        assert s == 1 or ne * (s // 2) < fg._FILL_BLOCKS
-    assert fg._parts(12_472, 56) == 1
-    assert fg._parts(8, 129_872) > 1
+                  (8, 300), (100, 4096), (4, 5000), (1, 257)]:
+        s, r_part = fg._parts(ne, R)
+        assert (s - 1) * r_part < R <= s * r_part
+        assert s == 1 or r_part >= fg._MIN_PART
+        assert s == 1 or ne * (s - 1) < fg._FILL_BLOCKS
+    assert fg._parts(12_472, 56) == (1, 56)
+    assert fg._parts(8, 129_872)[0] * 8 >= fg._FILL_BLOCKS
 
 
 def test_fused_gram_cuda_refuses_cpu_tensors():
@@ -124,3 +125,49 @@ def test_fused_gram_cuda_refuses_cpu_tensors():
         fg.fused_gram_cuda(torch.as_tensor(base).bfloat16(),
                            torch.as_tensor(idx),
                            torch.as_tensor(rat).bfloat16())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_gram_reference_ridge_is_the_guarded_solves_A(monkeypatch,
+                                                            dtype):
+    """With reg, the plain version's A is bit for bit the A that
+    guarded_batched_solve hands to the solve (ridge, then symmetrize)."""
+    from ycnr_tpu_torch.ops import gram
+
+    base, idx, rat = _inputs(300, 16, 24, 40, seed=3)
+    table = torch.as_tensor(base).to(dtype)
+    rt = torch.as_tensor(rat).to(dtype)
+    it = torch.as_tensor(idx)
+    cnt = (it < 300).sum(1).to(dtype)
+    reg = 0.05 * cnt + (cnt == 0)
+    A, b = fg.fused_gram_reference(table, it, rt, reg=reg)
+    seen = {}
+    monkeypatch.setattr(gram, "spd_solve",
+                        lambda A_, b_: seen.setdefault("A", A_))
+    A0, b0 = fg.fused_gram_reference(table, it, rt)
+    gram.guarded_batched_solve(A0, b0, reg)
+    assert A.dtype == dtype and torch.equal(A, seen["A"])
+    assert torch.equal(b, b0)
+    assert torch.equal(A[-1], torch.eye(16, dtype=dtype))  # padding entity
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_f64_check_catches_a_lost_part(drop):
+    """fused_gram_f64_error passes a float64 sum rounded to f32 on a long
+    list that the wrapper would split, and fails the same sum with one
+    part's slots left out."""
+    table, idx, rat = _inputs(300, 16, 4, 6000, 9, pad_frac=0.1)
+    table = torch.as_tensor(table).bfloat16()
+    it, rt = torch.as_tensor(idx), torch.as_tensor(rat).bfloat16()
+    cnt = (it < 300).sum(1).float()
+    reg = 0.05 * cnt + (cnt == 0)
+    s, r_part = fg._parts(4, 6000)
+    assert s > 1
+    kept = it.clone()
+    if drop:
+        kept[:, r_part:2 * r_part] = 300  # the zero trash row
+    A, b = fg.fused_gram_reference(table.double(), kept, rt.double(),
+                                   reg.double())
+    eA, eb = fg.fused_gram_f64_error(table, it, rt, reg, A.float(),
+                                     b.float())
+    assert (max(eA, eb) > fg.F64_REL) is drop

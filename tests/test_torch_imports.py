@@ -1,8 +1,9 @@
 """The PyTorch/CUDA port's import boundary and kernel build command.
 
-``ycnr_tpu_torch`` must import with JAX (and orbax) unavailable, and its
-kernel modules must import without ``nvcc`` or ``triton``: kernels build
-at first launch on a CUDA tensor, never at import.
+``ycnr_tpu_torch`` must import with JAX, orbax and the JAX package
+(``ycnr_tpu``) unavailable, and its kernel modules must import without
+``nvcc`` or ``triton``: kernels build at first launch on a CUDA tensor,
+never at import.
 """
 
 import glob
@@ -25,7 +26,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
 
     class Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "orbax", "triton"):
+            if name.split(".")[0] in ("jax", "jaxlib", "orbax", "triton",
+                                      "ycnr_tpu"):
                 raise ImportError("blocked: " + name)
 
     sys.meta_path.insert(0, Block())
@@ -35,7 +37,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     bad = [m for m in sys.modules
-           if m.split(".")[0] in ("jax", "jaxlib", "orbax", "triton")]
+           if m.split(".")[0] in ("jax", "jaxlib", "orbax", "triton",
+                                  "ycnr_tpu")]
     assert not bad, bad
     print(len(names), "modules")
     print(" ".join(names))
@@ -49,17 +52,23 @@ _SLICE_MODULES = {
     "ycnr_tpu_torch.tools.probe_gather", "ycnr_tpu_torch.tools.bench_gather",
     "ycnr_tpu_torch.ops.spd_solve", "ycnr_tpu_torch.ops.fused_topn",
     "ycnr_tpu_torch.models.bucketed_phase", "ycnr_tpu_torch.train.loop",
+    "ycnr_tpu_torch.config", "ycnr_tpu_torch.data.dataset",
+    "ycnr_tpu_torch.data.movielens", "ycnr_tpu_torch.data.split",
+    "ycnr_tpu_torch.data.synthetic", "ycnr_tpu_torch.ops.bucketed",
+    "ycnr_tpu_torch.ops.layout",
 }
 
 
 def test_port_imports_without_jax_nvcc_or_triton():
+    """Every port module imports with jax, jaxlib, orbax, triton and the
+    JAX package blocked, and without nvcc on the PATH."""
     env = dict(os.environ, PATH="/nonexistent", PYTHONPATH=REPO,
                CUDA_HOME="/nonexistent")
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.splitlines()[:2]
-    assert int(count.split()[0]) >= 23  # every module of the port
+    assert int(count.split()[0]) >= 30  # every module of the port
     assert _SLICE_MODULES <= set(names.split())
 
 
@@ -86,18 +95,18 @@ def test_kernel_sources_are_in_the_package():
                      "spd_solve.cu"]
 
 
-def test_only_the_shared_module_imports_the_jax_package():
-    """Every ycnr_tpu import of the port and of chip_smoke.py goes through
-    ycnr_tpu_torch/shared.py (JAX-free host code, used as it is)."""
+def test_port_imports_nothing_of_the_jax_package():
+    """No module of the port and not chip_smoke.py imports ycnr_tpu: the
+    port keeps its own copies of the host code it needs."""
     pat = re.compile(r"^\s*(from|import)\s+ycnr_tpu(\.|\s|$)", re.M)
     files = glob.glob(os.path.join(REPO, "ycnr_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     offenders = []
     for f in files:
         with open(f) as fh:
-            if pat.search(fh.read()) and not f.endswith("shared.py"):
+            if pat.search(fh.read()):
                 offenders.append(os.path.relpath(f, REPO))
-    assert offenders == []
+    assert len(files) >= 31 and offenders == []
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -30,7 +30,8 @@ def _setup(dtype=np.float64, seed=0):
     arrs = [x.astype(dtype) for x in (U, V, np.zeros(N_USERS + 1),
                                       np.zeros(N_ITEMS + 1))] + [dtype(0.0)]
     js = JState(*[jnp.asarray(x) for x in arrs])
-    ts = state_from_numpy(*arrs, dtype=torch.from_numpy(arrs[0]).dtype)
+    ts = state_from_numpy(*arrs, dtype=torch.from_numpy(arrs[0]).dtype,
+                          device="cpu")
     return js, ts, u, i, arrs
 
 
@@ -95,7 +96,7 @@ def test_checkpoints_cross_both_ways_bitwise(tmp_path, dtype):
     js, ts, *_ = _setup(dtype)
     jckpt.save_checkpoint(str(tmp_path / "j"), js, 3, config={"a": 1},
                           extra={"rmse_history": [1.0, 0.5]})
-    got, man = tckpt.load_checkpoint(str(tmp_path / "j"))
+    got, man = tckpt.load_checkpoint(str(tmp_path / "j"), device="cpu")
     assert man["epoch"] == 3 and man["format"] == 3
     for a, b in zip(js, to_numpy(got)):
         assert np.asarray(a).dtype == b.dtype
@@ -108,3 +109,15 @@ def test_checkpoints_cross_both_ways_bitwise(tmp_path, dtype):
         "manifest.json", "state-5.npz"]  # the superseded epoch is gone
     for a, b in zip(back, to_numpy(ts)):
         np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_load_checkpoint_without_a_device_needs_cuda(tmp_path, monkeypatch):
+    """A server that starts from a checkpoint serves on the card unless it
+    asks for the CPU; without a card the default raises."""
+    _, ts, *_ = _setup(np.float32)
+    tckpt.save_checkpoint(str(tmp_path / "c"), ts, 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tckpt.load_checkpoint(str(tmp_path / "c"))
+    got, _ = tckpt.load_checkpoint(str(tmp_path / "c"), device="cpu")
+    assert got.U.device.type == "cpu"

@@ -39,7 +39,8 @@ def _problem(seed=0, n_users=300, n_items=2000, nnz=6000, k=8, ints=True,
     bu[-1] = bi[-1] = 0
     arrs = [x.astype(dtype) for x in (U, V, bu, bi)] + [dtype(1.0)]
     js = JState(*[jnp.asarray(x) for x in arrs])
-    ts = state_from_numpy(*arrs, dtype=torch.from_numpy(arrs[0]).dtype)
+    ts = state_from_numpy(*arrs, dtype=torch.from_numpy(arrs[0]).dtype,
+                          device="cpu")
     return js, ts, lay, (u, i)
 
 
@@ -136,7 +137,7 @@ def test_neg_inf_tail_for_users_with_few_unrated_items():
     V = rng.normal(size=(n_items + 1, 4)).astype(np.float32)
     U[-1] = V[-1] = 0
     z = np.zeros
-    ts = state_from_numpy(U, V, z(21), z(n_items + 1), 0.0)
+    ts = state_from_numpy(U, V, z(21), z(n_items + 1), 0.0, device="cpu")
     js = JState(jnp.asarray(U), jnp.asarray(V), jnp.zeros(21, jnp.float32),
                 jnp.zeros(n_items + 1, jnp.float32), jnp.float32(0.0))
     bits = trec.build_rated_bits(lay, n_items)

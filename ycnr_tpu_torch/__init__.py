@@ -22,6 +22,18 @@ def full_precision_matmul():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def resolve_device(device, what: str):
+    """The device an entry point runs on: ``device`` as given, and for
+    None the card (``"cuda"``). Without a CUDA device, None raises; a CPU
+    run passes ``device="cpu"``."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device; pass device='cpu' for "
+                           f"a CPU run")
+    return "cuda"
+
+
 from ycnr_tpu_torch.models.base import (  # noqa: E402,F401
     MFState,
     init_state,

@@ -1,82 +1,127 @@
-// Fused gather -> Gram: per entity e of a block,
+// Fused gather -> Gram with the ridge: per entity e of a block,
 //
-//   A[e] = sum_r F[idx[e, r]] F[idx[e, r]]^T      [w, w] f32
-//   b[e] = sum_r rat[e, r] F[idx[e, r]]            [w]    f32
+//   A[e] = sum_r F[idx[e, r]] F[idx[e, r]]^T + reg[e] I   [w, w] f32
+//   b[e] = sum_r rat[e, r] F[idx[e, r]]                  [w]    f32
 //
 // from a bf16 factor table F [n, w] (w <= 128), without writing the
-// gathered rows to device memory.
+// gathered rows to device memory. reg is optional (null: no ridge).
 //
 // Replaces the TPU kernel tools/probe_gather.py:pallas_fused_gram (T4),
 // which gathers a [tile_ne, R] slot tile's rows into VMEM scratch and runs
 // the batched Gram on the MXU, at a fixed R = 32. Here R is any length:
 // the bucketed ALS epoch (models/bucketed_phase.py) calls it with rungs
-// from 32 slots up to the heaviest entity's thousands.
+// from 56 slots up to the heaviest entity's 129,872.
 //
-// What bounds it on Hopper: the CUDA cores. An entity costs R * w * w FMA
-// (w = 64: 4,096 per slot) against R * (2w + 6) bytes of reads (the rows
-// from the L2-resident table, plus index and rating), so the gathered
-// rows never cost a device-memory round trip and the f32 widening copy of
-// the two-step path is gone. Tensor-core products (mma.sync / wgmma with
-// bf16 in and f32 out), TMA staging and exploiting the symmetry of A are
-// later work.
+// What bounds it on Hopper: bytes. At w = 64 an entity writes 16 KB of A
+// whatever its R, and a slot costs 128 B of (L2-resident) row reads plus
+// its index and rating, against 64 * 64 * 2 FLOP that the bf16 tensor
+// cores do at ~1 PFLOP/s. So the design keeps the gather's loads in flight
+// and spends nothing on the products: rows are staged in shared memory
+// with 16-byte cp.async copies (cached in L1 as well) into a ring of
+// kStages stages of kStageSlots slots, the next stages loading while this
+// one multiplies (Hopper's TMA cannot gather arbitrary rows), with each
+// stage's indices read into registers one stage ahead; the products run
+// on the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// The layouts point every padding slot (~40% of them) at the table's last
+// row, the all-zero trash row: read by every block, that one line was the
+// kernel's hot spot, so a block that finds the row zero zero-fills those
+// slots without reading it.
 //
-// Design: one block of 256 threads per entity (the wrapper splits very
-// long rating lists over several blocks when a call has too few entities
-// to fill the card, and sums the parts). The block streams its slots in
-// tiles of kSlots rows, gathered into shared memory as bf16 with 16-byte
-// loads. The threads form a 16 x 16 grid over A; thread (ty, tx) owns the
-// T x T sub-tile of rows ty*T.. and columns tx*T.. (T = ceil(w / 16)) in
-// f32 registers, and the threads with ty == 0 also own b's columns tx*T...
-// Every sum is an fmaf chain in slot order. A product of two bf16 values
-// is exact in f32, so A[i][j] and A[j][i] are the same sums of the same
-// values in the same order: A comes out bit-symmetric, and a padding slot
-// (the all-zero trash row, rating 0) adds exactly nothing.
+// The staged slot-major rows F [slots, w] are read with ldmatrix.trans:
+// one x4 load gives the m16k16 A fragment of F^T for a 16-column tile,
+// and the same four registers are the two k16n8 B fragments of F for
+// that tile, so each 16-slot step loads each tile once. Only the lower
+// 16 x 16 tiles (ti >= tj) are multiplied (10 of 16 at w = 64); the
+// epilogue mirrors them, so A is bit-symmetric by construction and not by
+// any assumption about the tensor core's summation order. b is one more
+// n = 8 product per row tile whose B column 0 holds the slot ratings.
+//
+// Work split: a block of 4 warps per (entity, part). The wrapper cuts the
+// rating lists of a call with too few entities to fill the card into
+// parts of at least 256 slots, sums the parts' A and b and adds the ridge
+// after. At w <= 64 each warp takes one 16-slot step of every stage and
+// keeps all lower tiles (80 f32 accumulators a thread at w = 64); the
+// warps' partials go to shared memory and the epilogue sums them in warp
+// order. At w > 64 the tiles are dealt to the warps instead and every
+// warp takes every step. Either way the order of every sum is fixed, so
+// runs give equal bits. Padding slots and slots past R add exactly 0; a
+// padding entity comes out as A = reg I, b = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kGrid = 16;   // kGrid x kGrid threads over A
-constexpr int kSlots = 32;  // rating slots staged per tile
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStageSlots = 64;  // slots per stage: one 16-slot step per warp
+constexpr int kSteps = kStageSlots / 16;
+constexpr int kStages = 3;
 constexpr int kMaxW = 128;
 
-// bf16 -> f32 is a 16-bit shift; two values share one 32-bit word.
-__device__ __forceinline__ void unpack2(unsigned int x, float* out) {
-  out[0] = __uint_as_float(x << 16);
-  out[1] = __uint_as_float(x & 0xffff0000u);
+template <int T>  // T = 16-column tiles per side of A
+struct Cfg {
+  static constexpr int kW16 = 16 * T;   // w rounded up to whole tiles
+  static constexpr int kTiles = T * (T + 1) / 2;
+  static constexpr int kTG = T <= 4 ? 1 : kWarps;  // tile groups
+  static constexpr int kSG = kWarps / kTG;          // slot groups
+  static constexpr int kMT = (kTiles + kTG - 1) / kTG;  // tiles per warp
+  // staged row stride in bf16: 16 bytes of padding keep the eight rows of
+  // one ldmatrix on eight different bank groups
+  static constexpr int kRow = kW16 + 8;
+  static constexpr int kS = kW16 + 1;  // f32 stride of the staged Gram
+  static constexpr int kPart = kW16 * kS + kW16;  // one partial A and b
+  static constexpr int kQ = T;  // row copies per thread and stage (vec)
+  static constexpr int kStageBytes = kStages * kStageSlots * kRow * 2;
+  static constexpr int kGramBytes = kSG * kPart * 4;
+  // the Gram staging reuses the ring once the last stage is consumed
+  static constexpr int kRatOff =
+      ((kStageBytes > kGramBytes ? kStageBytes : kGramBytes) + 15) / 16 * 16;
+  static constexpr int kSmem = kRatOff + kStages * kStageSlots * 2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// T consecutive bf16 values of a shared-memory row as f32.
-template <int T>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
-                                         float (&out)[T]) {
-  if constexpr (T % 8 == 0) {
-#pragma unroll
-    for (int k = 0; k < T / 8; ++k) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[k];
-      unpack2(v.x, out + 8 * k);
-      unpack2(v.y, out + 8 * k + 2);
-      unpack2(v.z, out + 8 * k + 4);
-      unpack2(v.w, out + 8 * k + 6);
-    }
-  } else if constexpr (T % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < T / 4; ++k) {
-      const uint2 v = reinterpret_cast<const uint2*>(p)[k];
-      unpack2(v.x, out + 4 * k);
-      unpack2(v.y, out + 4 * k + 2);
-    }
-  } else if constexpr (T % 2 == 0) {
-#pragma unroll
-    for (int k = 0; k < T / 2; ++k) {
-      unpack2(reinterpret_cast<const unsigned int*>(p)[k], out + 2 * k);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < T; ++k) out[k] = __bfloat162float(p[k]);
-  }
+// 16-byte global -> shared copy, cached in L1 too (popular rows are read
+// by many blocks of an SM); bytes = 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(const void* p,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a (m16k16, row) * b (k16n8, col); bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int T, typename Idx>
@@ -84,150 +129,324 @@ __global__ void __launch_bounds__(kThreads)
 fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
                   const Idx* __restrict__ idx,
                   const __nv_bfloat16* __restrict__ rat,
-                  float* __restrict__ A, float* __restrict__ b, int R, int w,
-                  long long n_rows) {
-  constexpr int kW = kGrid * T;   // staged row width (bf16), w padded
-  constexpr int kChunks = kW / 8; // 16-byte chunks per staged row
-  __shared__ __align__(16) __nv_bfloat16 rows[kSlots][kW];
-  __shared__ long long s_idx[kSlots];
-  __shared__ float s_rat[kSlots];
+                  const float* __restrict__ reg, float* __restrict__ A,
+                  float* __restrict__ b, int R_all, int parts, int R_part,
+                  int w, long long n_rows, int vec) {
+  using C = Cfg<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [kStages][kStageSlots][kRow] bf16 staged rows, slot-major
+  unsigned short* rows = reinterpret_cast<unsigned short*>(smem);
+  // after the last stage: one partial per slot group, each the lower
+  // tiles of A [kW16][kS] then b [kW16]
+  float* S = reinterpret_cast<float*>(smem);
+  // [kStages][kStageSlots] bf16 ratings
+  unsigned short* s_rat = reinterpret_cast<unsigned short*>(smem + C::kRatOff);
+  const unsigned short* tb = reinterpret_cast<const unsigned short*>(table);
 
   const int t = threadIdx.x;
-  const int ty = t / kGrid;
-  const int tx = t % kGrid;
-  const long long e = blockIdx.x;
-  const Idx* ie = idx + e * R;
-  const __nv_bfloat16* re = rat + e * R;
-  const bool vec = (w % 8) == 0;  // rows are whole 16-byte chunks
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int tg = warp % C::kTG;
+  const int sg = warp / C::kTG;
+  // block = (entity, part): part p holds slots [p R_part, (p + 1) R_part)
+  const long long e = blockIdx.x / parts;
+  const int p0 = (blockIdx.x % parts) * R_part;
+  const int R = min(R_part, R_all - p0);
+  const Idx* ie = idx + e * R_all + p0;
+  const unsigned short* re =
+      reinterpret_cast<const unsigned short*>(rat) + e * R_all + p0;
+  const int cpr = w / 8;  // 16-byte chunks per row (vec)
+  const int nst = (R + kStageSlots - 1) / kStageSlots;
 
-  float acc[T][T];
-  float accb[T];
-#pragma unroll
-  for (int i = 0; i < T; ++i) {
-    accb[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < T; ++j) acc[i][j] = 0.0f;
+  if (vec && w < C::kW16) {  // columns [w, kW16) of every staged row: 0
+    const int pc = C::kW16 - w;
+    for (int q = t; q < kStages * kStageSlots * pc; q += kThreads) {
+      rows[(q / pc) * C::kRow + w + q % pc] = 0;
+    }
   }
 
-  for (int s0 = 0; s0 < R; s0 += kSlots) {
-    const int ns = min(kSlots, R - s0);
-    if (t < ns) {
-      const long long r = static_cast<long long>(ie[s0 + t]);
-      if (r < 0 || r >= n_rows) __trap();
-      s_idx[t] = r;
-      s_rat[t] = __bfloat162float(re[s0 + t]);
-    }
-    __syncthreads();
-    for (int q = t; q < ns * kChunks; q += kThreads) {
-      const int s = q / kChunks;
-      const int c = q - s * kChunks;
-      const __nv_bfloat16* src = table + s_idx[s] * w;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (vec) {
-        if (8 * c < w) v = reinterpret_cast<const uint4*>(src)[c];
-      } else {
-        unsigned short h[8];
+  const long long zrow = n_rows - 1;  // the padding slots' row
+  bool zero_last = true;              // and whether it is all zero (below)
+  // The indices and ratings of the next stage to issue, loaded into
+  // registers one iteration ahead, so no global load latency sits between
+  // one stage and the next (vec).
+  long long nidx[C::kQ];
+  unsigned short nrat = 0;
+  auto fetch = [&](int st) {
+    const int s0 = st * kStageSlots;
+    const int ns = min(kStageSlots, R - s0);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int col = 8 * c + k;
-          h[k] = col < w ? __bfloat16_as_ushort(src[col]) : 0;
+    for (int k = 0; k < C::kQ; ++k) {
+      const int s = (t + k * kThreads) / cpr;
+      nidx[k] = s < ns ? static_cast<long long>(ie[s0 + s]) : 0;
+    }
+    nrat = t < ns ? re[s0 + t] : 0;
+  };
+  // Stage st's rows and ratings into ring buffer st % kStages.
+  auto issue = [&](int st) {
+    const int buf = st % kStages;
+    const int s0 = st * kStageSlots;
+    const int ns = min(kStageSlots, R - s0);
+    unsigned short* dst = rows + buf * kStageSlots * C::kRow;
+    if (vec) {
+      if (t < kStageSlots) s_rat[buf * kStageSlots + t] = nrat;
+#pragma unroll
+      for (int k = 0; k < C::kQ; ++k) {
+        const int q = t + k * kThreads;
+        if (q < kStageSlots * cpr) {
+          const int s = q / cpr;
+          const int c = q - s * cpr;
+          const unsigned short* src = tb;
+          int bytes = 0;
+          if (s < ns) {
+            const long long r = nidx[k];
+            if (r < 0 || r >= n_rows) __trap();
+            if (r != zrow || !zero_last) {
+              src = tb + r * w + 8 * c;
+              bytes = 16;
+            }
+          }
+          cp_async16(dst + s * C::kRow + 8 * c, src, bytes);
         }
-        v = make_uint4(h[0] | (unsigned(h[1]) << 16),
-                       h[2] | (unsigned(h[3]) << 16),
-                       h[4] | (unsigned(h[5]) << 16),
-                       h[6] | (unsigned(h[7]) << 16));
       }
-      reinterpret_cast<uint4*>(&rows[s][0])[c] = v;
-    }
-    __syncthreads();
-    for (int s = 0; s < ns; ++s) {
-      float a[T];
-      float c[T];
-      load_row<T>(&rows[s][ty * T], a);
-      load_row<T>(&rows[s][tx * T], c);
-#pragma unroll
-      for (int i = 0; i < T; ++i) {
-#pragma unroll
-        for (int j = 0; j < T; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
+    } else {  // rows not whole 16-byte chunks: plain loads
+      if (t < kStageSlots) {
+        s_rat[buf * kStageSlots + t] = t < ns ? re[s0 + t] : 0;
       }
-      if (ty == 0) {
-        const float rv = s_rat[s];
-#pragma unroll
-        for (int j = 0; j < T; ++j) accb[j] = fmaf(rv, c[j], accb[j]);
+      for (int q = t; q < kStageSlots * C::kW16; q += kThreads) {
+        const int s = q / C::kW16;
+        const int col = q - s * C::kW16;
+        unsigned short v = 0;
+        if (s < ns && col < w) {
+          const long long r = static_cast<long long>(ie[s0 + s]);
+          if (r < 0 || r >= n_rows) __trap();
+          v = tb[r * w + col];
+        }
+        dst[s * C::kRow + col] = v;
       }
     }
-    __syncthreads();
-  }
+  };
 
-  float* Ae = A + e * w * w;
+  float acc[C::kMT][2][4];
+  float accb[T][4];
+#pragma unroll
+  for (int i = 0; i < C::kMT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][h][k] = 0.0f;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < T; ++i) {
-    const int row = ty * T + i;
-    if (row < w) {
 #pragma unroll
-      for (int j = 0; j < T; ++j) {
-        const int col = tx * T + j;
-        if (col < w) Ae[row * w + col] = acc[i][j];
+    for (int k = 0; k < 4; ++k) accb[i][k] = 0.0f;
+  }
+
+  // The layouts point every padding slot at the table's last row, which
+  // the factor tables keep at zero: up to ~40% of all slots read that one
+  // row, a hot spot in L2. If the row is +-0 throughout, such slots are
+  // zero-filled without a read (the sums are the same bits); otherwise it
+  // is read like any other row. Checked while the first indices load.
+  if (vec) fetch(0);
+  for (int c = t; c < w; c += kThreads) {
+    zero_last = zero_last && (tb[zrow * w + c] & 0x7fff) == 0;
+  }
+  zero_last = __syncthreads_and(zero_last);
+#pragma unroll
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < nst) {
+      if (vec && p > 0) fetch(p);
+      issue(p);
+    }
+    cp_async_commit();
+  }
+  if (vec && kStages - 1 < nst) fetch(kStages - 1);
+  // this lane's ldmatrix row: slot (lane & 7) + 8 * bit 4, column 8 * bit 3
+  const int lrow = (lane & 7) + 8 * ((lane >> 4) & 1);
+  const int lcol = 8 * ((lane >> 3) & 1);
+  for (int st = 0; st < nst; ++st) {
+    if (st + kStages - 1 < nst) {
+      issue(st + kStages - 1);
+      if (vec && st + kStages < nst) fetch(st + kStages);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int buf = st % kStages;
+    const int ns = min(kStageSlots, R - st * kStageSlots);
+    const unsigned short* src = rows + buf * kStageSlots * C::kRow;
+    const uint32_t* rat2 =
+        reinterpret_cast<const uint32_t*>(s_rat + buf * kStageSlots);
+    for (int kc = sg; kc < kSteps; kc += C::kSG) {
+      const int k0 = 16 * kc;
+      if (k0 >= ns) break;
+      uint32_t fr[T][4];  // F^T tile ti as m16k16 A fragments
+      const unsigned short* base = src + (k0 + lrow) * C::kRow + lcol;
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti) ldsm_x4_trans(base + 16 * ti, fr[ti]);
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti) {
+#pragma unroll
+        for (int tj = 0; tj <= ti; ++tj) {
+          const int tt = ti * (ti + 1) / 2 + tj;
+          if (tt % C::kTG == tg) {
+            // F tile tj as k16n8 B fragments: the same registers
+            mma_bf16(acc[tt / C::kTG][0], fr[ti], fr[tj][0], fr[tj][2]);
+            mma_bf16(acc[tt / C::kTG][1], fr[ti], fr[tj][1], fr[tj][3]);
+          }
+        }
+      }
+      // b: B column 0 (lanes 0-3) holds the ratings of slots k0..k0+15
+      const uint32_t rb0 = lane < 4 ? rat2[k0 / 2 + lane] : 0u;
+      const uint32_t rb1 = lane < 4 ? rat2[k0 / 2 + 4 + lane] : 0u;
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti) {
+        if ((ti * (ti + 1) / 2 + ti) % C::kTG == tg) {
+          mma_bf16(accb[ti], fr[ti], rb0, rb1);
+        }
       }
     }
+    __syncthreads();
   }
-  if (ty == 0) {
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Each slot group's partial -> its own buffer (lower tiles and b).
+  const int g = lane >> 2;
+  const int c2 = 2 * (lane & 3);
+  float* P = S + sg * C::kPart;
 #pragma unroll
-    for (int j = 0; j < T; ++j) {
-      const int col = tx * T + j;
-      if (col < w) b[e * w + col] = accb[j];
+  for (int ti = 0; ti < T; ++ti) {
+#pragma unroll
+    for (int tj = 0; tj <= ti; ++tj) {
+      const int tt = ti * (ti + 1) / 2 + tj;
+      if (tt % C::kTG == tg) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* d = P + (16 * ti + g) * C::kS + 16 * tj + 8 * h + c2;
+          const float* a = acc[tt / C::kTG][h];
+          d[0] = a[0];
+          d[1] = a[1];
+          d[8 * C::kS] = a[2];
+          d[8 * C::kS + 1] = a[3];
+        }
+      }
     }
+    if ((ti * (ti + 1) / 2 + ti) % C::kTG == tg && (lane & 3) == 0) {
+      P[C::kW16 * C::kS + 16 * ti + g] = accb[ti][0];
+      P[C::kW16 * C::kS + 16 * ti + g + 8] = accb[ti][2];
+    }
+  }
+  __syncthreads();
+
+  // Epilogue: the partials summed in slot-group order, the lower triangle
+  // mirrored, the ridge added on the diagonal.
+  auto gram = [&](int i, int j) {  // i >= j
+    float v = S[i * C::kS + j];
+#pragma unroll
+    for (int p = 1; p < C::kSG; ++p) v += S[p * C::kPart + i * C::kS + j];
+    return v;
+  };
+  float* Ae = A + static_cast<long long>(blockIdx.x) * w * w;
+  const float rg = reg != nullptr ? reg[e] : 0.0f;
+  if ((w & 3) == 0) {  // 16-byte stores
+    for (int q = 4 * t; q < w * w; q += 4 * kThreads) {
+      const int i = q / w;
+      const int j = q - i * w;
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int jj = j + u;
+        v[u] = i >= jj ? gram(i, jj) : gram(jj, i);
+        if (i == jj) v[u] += rg;
+      }
+      *reinterpret_cast<float4*>(Ae + q) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+    for (int q = t; q < w * w; q += kThreads) {
+      const int i = q / w;
+      const int j = q - i * w;
+      float v = i >= j ? gram(i, j) : gram(j, i);
+      if (i == j) v += rg;
+      Ae[q] = v;
+    }
+  }
+  for (int i = t; i < w; i += kThreads) {
+    float v = S[C::kW16 * C::kS + i];
+#pragma unroll
+    for (int p = 1; p < C::kSG; ++p) v += S[p * C::kPart + C::kW16 * C::kS + i];
+    b[static_cast<long long>(blockIdx.x) * w + i] = v;
   }
 }
 
-template <int T>
-int launch(const void* table, const void* idx, const void* rat, float* A,
-           float* b, long long ne, int R, int w, long long n_rows, int idx64,
-           cudaStream_t stream) {
-  const auto* tb = static_cast<const __nv_bfloat16*>(table);
-  const auto* rt = static_cast<const __nv_bfloat16*>(rat);
-  const unsigned grid = static_cast<unsigned>(ne);
-  if (idx64) {
-    fused_gram_kernel<T, long long><<<grid, kThreads, 0, stream>>>(
-        tb, static_cast<const long long*>(idx), rt, A, b, R, w, n_rows);
-  } else {
-    fused_gram_kernel<T, int><<<grid, kThreads, 0, stream>>>(
-        tb, static_cast<const int*>(idx), rt, A, b, R, w, n_rows);
+template <int T, typename Idx>
+int launch_t(const void* table, const void* idx, const void* rat,
+             const float* reg, float* A, float* b, long long ne, int R,
+             int parts, int R_part, int w, long long n_rows, int vec,
+             cudaStream_t stream) {
+  using C = Cfg<T>;
+  static_assert(C::kSmem <= 232448, "shared memory");
+  auto kern = fused_gram_kernel<T, Idx>;
+  if (C::kSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return err;
   }
+  kern<<<static_cast<unsigned>(ne * parts), kThreads, C::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(table), static_cast<const Idx*>(idx),
+      static_cast<const __nv_bfloat16*>(rat), reg, A, b, R, parts, R_part, w,
+      n_rows, vec);
   return cudaGetLastError();
+}
+
+template <int T>
+int launch(const void* table, const void* idx, const void* rat,
+           const float* reg, float* A, float* b, long long ne, int R,
+           int parts, int R_part, int w, long long n_rows, int idx64, int vec,
+           cudaStream_t stream) {
+  return idx64 ? launch_t<T, long long>(table, idx, rat, reg, A, b, ne, R,
+                                        parts, R_part, w, n_rows, vec, stream)
+               : launch_t<T, int>(table, idx, rat, reg, A, b, ne, R, parts,
+                                  R_part, w, n_rows, vec, stream);
 }
 
 }  // namespace
 
 // table [n_rows, w] bf16, idx [ne, R] int32 or int64 (idx64), rat [ne, R]
-// bf16 -> A [ne, w, w] f32, b [ne, w] f32.
+// bf16, reg [ne] f32 or null. Each entity's slots are cut into `parts`
+// parts of R_part slots (the last may be shorter; 1 part: the whole list)
+// -> A [ne * parts, w, w] f32, b [ne * parts, w] f32, one per (entity,
+// part), with the ridge on every part (pass it with one part only).
 extern "C" int ycnr_fused_gram(const void* table, const void* idx,
-                               const void* rat, float* A, float* b,
-                               long long ne, int R, int w, long long n_rows,
-                               int idx64, cudaStream_t stream) {
-  if (ne < 1 || ne > 0x7fffffffLL || R < 1 || w < 1 || w > kMaxW ||
-      n_rows < 1) {
+                               const void* rat, const float* reg, float* A,
+                               float* b, long long ne, int R, int parts,
+                               int R_part, int w, long long n_rows, int idx64,
+                               cudaStream_t stream) {
+  if (ne < 1 || R < 1 || parts < 1 || R_part < 1 ||
+      static_cast<long long>(parts - 1) * R_part >= R ||
+      static_cast<long long>(parts) * R_part < R ||
+      ne * parts > 0x7fffffffLL || w < 1 || w > kMaxW || n_rows < 1) {
     return cudaErrorInvalidValue;
   }
-  if (w % 8 == 0 && reinterpret_cast<unsigned long long>(table) % 16 != 0) {
-    return cudaErrorMisalignedAddress;
-  }
-  switch ((w + kGrid - 1) / kGrid) {
-    case 1: return launch<1>(table, idx, rat, A, b, ne, R, w, n_rows, idx64,
-                             stream);
-    case 2: return launch<2>(table, idx, rat, A, b, ne, R, w, n_rows, idx64,
-                             stream);
-    case 3: return launch<3>(table, idx, rat, A, b, ne, R, w, n_rows, idx64,
-                             stream);
-    case 4: return launch<4>(table, idx, rat, A, b, ne, R, w, n_rows, idx64,
-                             stream);
-    case 5: return launch<5>(table, idx, rat, A, b, ne, R, w, n_rows, idx64,
-                             stream);
-    case 6: return launch<6>(table, idx, rat, A, b, ne, R, w, n_rows, idx64,
-                             stream);
-    case 7: return launch<7>(table, idx, rat, A, b, ne, R, w, n_rows, idx64,
-                             stream);
-    default: return launch<8>(table, idx, rat, A, b, ne, R, w, n_rows, idx64,
-                              stream);
+  // whole 16-byte rows for cp.async; otherwise plain loads
+  const int vec =
+      w % 8 == 0 && reinterpret_cast<unsigned long long>(table) % 16 == 0;
+  switch ((w + 15) / 16) {
+#define YCNR_GRAM_CASE(T)                                                   \
+  case T:                                                                   \
+    return launch<T>(table, idx, rat, reg, A, b, ne, R, parts, R_part, w,   \
+                     n_rows, idx64, vec, stream);
+    YCNR_GRAM_CASE(1)
+    YCNR_GRAM_CASE(2)
+    YCNR_GRAM_CASE(3)
+    YCNR_GRAM_CASE(4)
+    YCNR_GRAM_CASE(5)
+    YCNR_GRAM_CASE(6)
+    YCNR_GRAM_CASE(7)
+    default:
+      return launch<8>(table, idx, rat, reg, A, b, ne, R, parts, R_part, w,
+                       n_rows, idx64, vec, stream);
+#undef YCNR_GRAM_CASE
   }
 }

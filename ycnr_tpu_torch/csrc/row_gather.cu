@@ -36,6 +36,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVecPerThread = 4;  // 16-byte loads in flight per thread
+constexpr int kTakeRuns = 2;      // take_along_rows: runs per thread
+constexpr long long kTakeMaxBlocks = 132LL * 64;
 
 template <typename Vec, typename Idx>
 __global__ void __launch_bounds__(kThreads)
@@ -113,9 +115,95 @@ int dispatch_rows(const void* table, const void* idx, void* out, long long m,
                                          row_bytes, stream);
 }
 
-// T3's form: one thread per output element, so the index reads, the output
-// writes and (for row-broadcast indices) the table reads of a warp are all
-// contiguous.
+// T3's form, out[i, j] = table[idx2[i, j], j], over the flat [m * c]
+// output. With int64 indices and 2-byte elements the index bytes are 80%
+// of the traffic, so the bound is m * c * (index + element bytes) and the
+// design moves those bytes in 16-byte pieces: each thread makes a run of
+// 16 bytes of output (V = 8 bf16 or 4 f32 consecutive flat elements),
+// reads the run's V indices with 16-byte vector loads, and stores the run
+// with one 16-byte store. When the run's indices are all equal and its
+// columns are consecutive and 16-byte aligned in one table row (the
+// row-broadcast indices T3 uses), the table read is one 16-byte load too;
+// otherwise one load per element. Every thread keeps kTakeRuns runs
+// in flight before its first store. The last m * c % V elements are a
+// scalar edge (block 0). Needs 16-byte aligned bases; the scalar kernel
+// below takes the rest.
+template <typename T, typename Idx>
+__global__ void __launch_bounds__(kThreads)
+take_along_rows_vec_kernel(const T* __restrict__ table,
+                           const Idx* __restrict__ idx2, T* __restrict__ out,
+                           long long total, int c, int w, long long n_rows) {
+  constexpr int V = 16 / sizeof(T);                   // elements per run
+  constexpr int kIdxVecs = V * sizeof(Idx) / 16;      // index loads per run
+  const long long nruns = total / V;
+  const uint4* iv = reinterpret_cast<const uint4*>(idx2);
+  // a block takes kTakeRuns * kThreads consecutive runs, thread j the
+  // runs j, j + kThreads, ...: all in flight before the first store
+  const long long step = static_cast<long long>(gridDim.x) * kThreads *
+                         kTakeRuns;
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads *
+                            kTakeRuns + threadIdx.x;
+       base < nruns; base += step) {
+    uint4 raw[kTakeRuns][kIdxVecs];
+#pragma unroll
+    for (int u = 0; u < kTakeRuns; ++u) {
+      const long long q = base + u * kThreads;
+      if (q < nruns) {
+#pragma unroll
+        for (int k = 0; k < kIdxVecs; ++k) raw[u][k] = iv[q * kIdxVecs + k];
+      }
+    }
+    uint4 v[kTakeRuns];
+#pragma unroll
+    for (int u = 0; u < kTakeRuns; ++u) {
+      const long long q = base + u * kThreads;
+      if (q < nruns) {
+        const Idx* ix = reinterpret_cast<const Idx*>(raw[u]);
+        bool same = true;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          if (static_cast<unsigned long long>(ix[k]) >=
+              static_cast<unsigned long long>(n_rows)) {
+            __trap();
+          }
+          same = same && ix[k] == ix[0];
+        }
+        const long long e0 = q * V;
+        const int j0 = static_cast<int>(e0 % c);
+        const long long a0 = static_cast<long long>(ix[0]) * w + j0;
+        if (same && j0 + V <= c && a0 % V == 0) {
+          v[u] = *reinterpret_cast<const uint4*>(table + a0);
+        } else {
+          union {
+            uint4 vec;
+            T x[V];
+          } pk;
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            int j = j0 + k;
+            while (j >= c) j -= c;
+            pk.x[k] = table[static_cast<long long>(ix[k]) * w + j];
+          }
+          v[u] = pk.vec;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTakeRuns; ++u) {
+      const long long q = base + u * kThreads;
+      if (q < nruns) reinterpret_cast<uint4*>(out)[q] = v[u];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < total - nruns * V) {
+    const long long q = nruns * V + threadIdx.x;
+    const long long r = static_cast<long long>(idx2[q]);
+    if (r < 0 || r >= n_rows) __trap();
+    out[q] = table[r * w + (q % c)];
+  }
+}
+
+// The scalar form, for bases that are not 16-byte aligned: one thread per
+// output element.
 template <typename T, typename Idx>
 __global__ void __launch_bounds__(kThreads)
 take_along_rows_kernel(const T* __restrict__ table,
@@ -130,22 +218,40 @@ take_along_rows_kernel(const T* __restrict__ table,
   }
 }
 
+template <typename T, typename Idx>
+int launch_take(const void* table, const void* idx2, void* out,
+                long long total, int c, int w, long long n_rows,
+                cudaStream_t stream) {
+  const auto* tb = static_cast<const T*>(table);
+  const auto* ix = static_cast<const Idx*>(idx2);
+  auto* o = static_cast<T*>(out);
+  const unsigned long long a = reinterpret_cast<unsigned long long>(table) |
+                               reinterpret_cast<unsigned long long>(idx2) |
+                               reinterpret_cast<unsigned long long>(out);
+  if (a % 16 == 0) {
+    const long long per_block = static_cast<long long>(kThreads) * kTakeRuns;
+    const long long runs = total / (16 / sizeof(T));
+    const unsigned blocks = static_cast<unsigned>(std::max(
+        1LL, std::min((runs + per_block - 1) / per_block, kTakeMaxBlocks)));
+    take_along_rows_vec_kernel<T, Idx><<<blocks, kThreads, 0, stream>>>(
+        tb, ix, o, total, c, w, n_rows);
+  } else {
+    const unsigned blocks = static_cast<unsigned>(
+        std::min((total + kThreads - 1) / kThreads, 132LL * 64));
+    take_along_rows_kernel<T, Idx><<<blocks, kThreads, 0, stream>>>(
+        tb, ix, o, total, c, w, n_rows);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T>
 int dispatch_take(const void* table, const void* idx2, void* out,
                   long long total, int c, int w, long long n_rows, int idx64,
                   cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>(
-      std::min((total + kThreads - 1) / kThreads, 132LL * 64));
-  const auto* tb = static_cast<const T*>(table);
-  auto* o = static_cast<T*>(out);
-  if (idx64) {
-    take_along_rows_kernel<T, long long><<<blocks, kThreads, 0, stream>>>(
-        tb, static_cast<const long long*>(idx2), o, total, c, w, n_rows);
-  } else {
-    take_along_rows_kernel<T, int><<<blocks, kThreads, 0, stream>>>(
-        tb, static_cast<const int*>(idx2), o, total, c, w, n_rows);
-  }
-  return cudaGetLastError();
+  return idx64 ? launch_take<T, long long>(table, idx2, out, total, c, w,
+                                           n_rows, stream)
+               : launch_take<T, int>(table, idx2, out, total, c, w, n_rows,
+                                     stream);
 }
 
 }  // namespace

@@ -24,7 +24,7 @@ from ycnr_tpu_torch.ops.fused_topn import (
     fused_supported,
     fused_topn_blocks,
 )
-from ycnr_tpu_torch.shared import BlockedCSR
+from ycnr_tpu_torch.ops.layout import BlockedCSR
 
 
 def overfetch_n(n: int, n_extra: int) -> int:

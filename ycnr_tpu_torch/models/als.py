@@ -13,7 +13,7 @@ import torch
 
 from ycnr_tpu_torch.models.base import MFState
 from ycnr_tpu_torch.ops.gram import BlockData, solve_block
-from ycnr_tpu_torch.shared import BlockedCSR
+from ycnr_tpu_torch.ops.layout import BlockedCSR
 
 
 def _phase(E_pad: torch.Tensor, F_pad: torch.Tensor, layout: BlockedCSR,

@@ -13,7 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ycnr_tpu_torch.shared import BlockedCSR
+from ycnr_tpu_torch import resolve_device
+from ycnr_tpu_torch.ops.layout import BlockedCSR
 
 
 class MFState(NamedTuple):
@@ -40,10 +41,11 @@ class MFState(NamedTuple):
 
 def init_state(n_users: int, n_items: int, rank: int, seed: int = 0,
                scale: float = 0.1, mu: float = 0.0,
-               dtype=torch.float32, device="cpu") -> MFState:
+               dtype=torch.float32, device=None) -> MFState:
     """Random-normal factor init from NumPy's ``default_rng(seed)``, drawn
     exactly as the JAX package draws it, so both start from the same
-    factors."""
+    factors. ``device`` None means the card (``resolve_device``)."""
+    device = resolve_device(device, "init_state()")
     rng = np.random.default_rng(seed)
     U = np.zeros((n_users + 1, rank), np.float64)
     V = np.zeros((n_items + 1, rank), np.float64)
@@ -53,11 +55,13 @@ def init_state(n_users: int, n_items: int, rank: int, seed: int = 0,
                             mu, device=device, dtype=dtype)
 
 
-def state_from_numpy(U, V, bu, bi, mu, device="cpu",
+def state_from_numpy(U, V, bu, bi, mu, device=None,
                      dtype=torch.float32) -> MFState:
     """Wrap PADDED NumPy arrays (``np.asarray(jax_state.U)`` etc., trailing
     zero rows included) as the port's MFState. The JAX package's function
-    of this name takes unpadded arrays; this one carries weights across."""
+    of this name takes unpadded arrays; this one carries weights across.
+    ``device`` None means the card (``resolve_device``)."""
+    device = resolve_device(device, "state_from_numpy()")
     def t(x):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 

@@ -1,13 +1,13 @@
 """Bucketed solve phases for ALS-WR and iALS (counterpart of
 ``ycnr_tpu/models/bucketed_phase.py``).
 
-The layout is ``ycnr_tpu.ops.bucketed.build_bucketed``'s, unchanged: every
-entity of a group owns exactly R rating slots, so its Gram matrix is one
-batched product over the R axis. A phase walks each group block by block:
-gather the other factor's rows (the row-gather kernel on CUDA), build the
-normal equations (for the main path, bf16 ALS-WR, both in one fused
-gather -> Gram kernel), run the guarded batched solve (K1 on CUDA) and
-write the rows back.
+The layout is ``ops/bucketed.build_bucketed``'s, unchanged: every entity
+of a group owns exactly R rating slots, so its Gram matrix is one batched
+product over the R axis. A phase walks each group block by block: gather
+the other factor's rows (the row-gather kernel on CUDA), build the normal
+equations, run the guarded batched solve (K1 on CUDA) and write the rows
+back. For the main path, bf16 ALS-WR, the gather, the normal equations and
+the ridge are one fused gather -> Gram kernel whose A goes straight to K1.
 
 The JAX package's scans become Python loops. A phase writes its solved rows
 into ``E`` in place: blocks of one phase read only the other factor, so the
@@ -17,7 +17,7 @@ trash row with rows that solve to exactly 0.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,20 +25,47 @@ from ycnr_tpu_torch.models.base import MFState, rmse_padded
 from ycnr_tpu_torch.ops.fused_gram import fused_gram
 from ycnr_tpu_torch.ops.gram import guarded_batched_solve
 from ycnr_tpu_torch.ops.row_gather import row_gather
-from ycnr_tpu_torch.shared import BucketedCSR, BucketGroup
+from ycnr_tpu_torch.ops.spd_solve import spd_solve
 
 
-def device_bucketed(groups, dtype=torch.float32,
-                    device="cpu") -> BucketedCSR:
-    """Move a host ``build_bucketed`` layout into tensors (indices as int64,
-    ratings and counts in ``dtype``)."""
+class DeviceBucketGroup(NamedTuple):
+    """One bucket group as tensors (``device_bucketed``)."""
+
+    other_idx: torch.Tensor  # [NB, NE_b, R] int64
+    rating: torch.Tensor  # [NB, NE_b, R]; bf16 for the fused branch
+    entity_ids: torch.Tensor  # [NB, NE_b] int64
+    entity_cnt: torch.Tensor  # [NB, NE_b]
+
+
+DeviceBucketedCSR = Tuple[DeviceBucketGroup, ...]
+
+
+def device_bucketed(groups, dtype=torch.float32, device="cpu",
+                    rating_dtype: Optional[torch.dtype] = None
+                    ) -> DeviceBucketedCSR:
+    """Move a host ``build_bucketed`` layout into tensors on ``device``
+    (indices as int64, counts in ``dtype``, ratings in ``rating_dtype``,
+    by default ``dtype``). The fused branch of ``phase_bucketed`` reads
+    bf16 ratings as they are: ``rating_dtype=torch.bfloat16`` rounds them
+    once, to the values the JAX package rounds in every phase
+    (``uses_fused`` says when a layout needs them)."""
     def t(x, dt):
         return torch.as_tensor(x, device=device).to(dt)
 
     return tuple(
-        BucketGroup(t(g.other_idx, torch.long), t(g.rating, dtype),
-                    t(g.entity_ids, torch.long), t(g.entity_cnt, dtype))
+        DeviceBucketGroup(
+            t(g.other_idx, torch.long), t(g.rating, rating_dtype or dtype),
+            t(g.entity_ids, torch.long), t(g.entity_cnt, dtype))
         for g in groups)
+
+
+def uses_fused(device, dtype, alpha, gather_bf16: bool) -> bool:
+    """Whether ``phase_bucketed`` runs the fused branch for factors of
+    ``dtype`` on ``device``: ALS-WR (``alpha`` None) with bf16 gathers into
+    f32 factors on CUDA. Its layouts then hold bf16 ratings; every other
+    case reads them in the factors' dtype."""
+    return (torch.device(device).type == "cuda" and alpha is None
+            and gather_bf16 and dtype == torch.float32)
 
 
 def bucket_solve_rows(Fg, rr, cnt, lam, alpha, base_gram, acc_t,
@@ -86,8 +113,21 @@ def bucket_finish_solve(A, b, cnt, lam, alpha, base_gram):
     return guarded_batched_solve(A, b, reg.to(A.dtype))
 
 
-def phase_bucketed(E: torch.Tensor, F: torch.Tensor, groups: BucketedCSR,
-                   lam: float, alpha: Optional[float] = None,
+def bucket_fused_rows(F_g, oi, rr16, cnt, lam) -> torch.Tensor:
+    """The main path's block: bf16 ALS-WR normal equations with the ridge
+    ``lam * cnt + (cnt == 0)`` from the fused gather -> Gram, then the
+    solve. F_g the bf16 other factor, oi [NE, R], rr16 [NE, R] bf16
+    ratings, cnt [NE] f32. ``fused_gram``'s A already holds the ridge and
+    is symmetric, so no ``guarded_batched_solve`` pass runs; on the CPU
+    both steps are their plain versions, and the result equals
+    ``bucket_solve_rows`` with bf16 gathers bit for bit."""
+    A, b = fused_gram(F_g, oi, rr16, reg=lam * cnt + (cnt == 0))
+    return spd_solve(A, b)
+
+
+def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
+                   groups: DeviceBucketedCSR, lam: float,
+                   alpha: Optional[float] = None,
                    base_gram: Optional[torch.Tensor] = None,
                    gather_bf16: bool = False) -> torch.Tensor:
     """Re-solve all entity rows of E against F, one bucket group at a time.
@@ -97,30 +137,37 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor, groups: BucketedCSR,
     bytes) with Gram sums in E's dtype, ~1e-3 relative on the normal
     equations.
 
-    On CUDA, ALS-WR with bf16 gathers into an f32 E (the main path) builds
-    each block's normal equations with the fused gather -> Gram kernel
-    (``ops/fused_gram.py``); every other case gathers with the row-gather
-    kernel (``ops/row_gather.py``) and runs ``bucket_normal_eq``. On the
-    CPU both are their plain versions, which is this function's plain
-    path.
+    On CUDA, ALS-WR with bf16 gathers into an f32 E (the main path) runs
+    ``bucket_fused_rows``: the fused gather -> Gram kernel with the ridge
+    in its epilogue, then K1; its layouts hold bf16 ratings (``uses_fused``).
+    Every other case gathers with the row-gather kernel
+    (``ops/row_gather.py``) and runs ``bucket_normal_eq`` and
+    ``guarded_batched_solve``, with ratings in E's dtype. On the CPU every
+    kernel is its plain version, which is this function's plain path.
     """
     F_g = F.to(torch.bfloat16) if gather_bf16 else F
-    fused = (E.is_cuda and alpha is None and gather_bf16
-             and E.dtype == torch.float32)
+    fused = uses_fused(E.device, E.dtype, alpha, gather_bf16)
+    want = torch.bfloat16 if fused else E.dtype
     for g in groups:
-        for oi, rr, eid, cnt in zip(*g):
+        if g.rating.dtype != want:
+            raise ValueError(
+                f"phase_bucketed reads {want} ratings here, the layout holds "
+                f"{g.rating.dtype}: build it with device_bucketed(..., "
+                f"rating_dtype={want})")
+        for j in range(g.other_idx.shape[0]):
+            oi, rr, cnt = g.other_idx[j], g.rating[j], g.entity_cnt[j]
             if fused:
-                A, b = fused_gram(F_g, oi, rr.to(torch.bfloat16))
-                rows = bucket_finish_solve(A, b, cnt, lam, alpha, base_gram)
+                rows = bucket_fused_rows(F_g, oi, rr, cnt.to(E.dtype), lam)
             else:
                 rows = bucket_solve_rows(row_gather(F_g, oi), rr, cnt, lam,
                                          alpha, base_gram, E.dtype,
                                          gather_bf16)
-            E[eid] = rows.to(E.dtype)
+            E[g.entity_ids[j]] = rows.to(E.dtype)
     return E
 
 
-def als_epoch_fn(user_groups: BucketedCSR, item_groups: BucketedCSR, lam,
+def als_epoch_fn(user_groups: DeviceBucketedCSR,
+                 item_groups: DeviceBucketedCSR, lam,
                  gather_bf16: bool = False):
     """state -> state, one ALS-WR epoch (user phase, then item phase
     against the NEW U). The returned state shares the input's tensors,
@@ -135,7 +182,8 @@ def als_epoch_fn(user_groups: BucketedCSR, item_groups: BucketedCSR, lam,
     return one
 
 
-def ials_epoch_fn(user_groups: BucketedCSR, item_groups: BucketedCSR, lam,
+def ials_epoch_fn(user_groups: DeviceBucketedCSR,
+                 item_groups: DeviceBucketedCSR, lam,
                   alpha, gather_bf16: bool = False):
     """iALS analog of als_epoch_fn (global base Gram per sweep side)."""
     def one(st: MFState) -> MFState:
@@ -160,8 +208,9 @@ def _epochs(state: MFState, n_epochs: int, epoch_fn, test_coo, train_coo):
     return state, (torch.stack(rt), torch.stack(rq) if rq else ())
 
 
-def als_epochs_bucketed(state: MFState, user_groups: BucketedCSR,
-                        item_groups: BucketedCSR, lam: float, n_epochs: int,
+def als_epochs_bucketed(state: MFState, user_groups: DeviceBucketedCSR,
+                        item_groups: DeviceBucketedCSR, lam: float,
+                        n_epochs: int,
                         test_coo, train_coo=None,
                         gather_bf16: bool = False):
     """n_epochs ALS-WR sweeps + per-epoch held-out RMSE.
@@ -175,8 +224,9 @@ def als_epochs_bucketed(state: MFState, user_groups: BucketedCSR,
                    test_coo, train_coo)
 
 
-def ials_epochs_bucketed(state: MFState, user_groups: BucketedCSR,
-                         item_groups: BucketedCSR, lam: float, alpha: float,
+def ials_epochs_bucketed(state: MFState, user_groups: DeviceBucketedCSR,
+                         item_groups: DeviceBucketedCSR, lam: float,
+                         alpha: float,
                          n_epochs: int, test_coo, train_coo=None,
                          gather_bf16: bool = False):
     """n_epochs iALS sweeps + per-epoch held-out RMSE."""

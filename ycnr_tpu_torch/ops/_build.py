@@ -18,6 +18,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -64,7 +66,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ycnr_row_gather.restype = i
     lib.ycnr_take_along_rows.argtypes = [p, p, p, ll, i, i, ll, i, i, p]
     lib.ycnr_take_along_rows.restype = i
-    lib.ycnr_fused_gram.argtypes = [p, p, p, p, p, ll, i, i, ll, i, p]
+    lib.ycnr_fused_gram.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, ll,
+                                    i, p]
     lib.ycnr_fused_gram.restype = i
     return lib
 
@@ -101,6 +104,13 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError("nvcc failed:\n" + "\n".join(bad))
         os.replace(tmp, out)
     return _declare(ctypes.CDLL(out))
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device`` as the raw handle the C
+    entry points take (without building a ``torch.cuda.Stream`` per
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, what: str):

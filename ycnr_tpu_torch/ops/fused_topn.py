@@ -93,7 +93,7 @@ def fused_scores_cuda(rows, V, bi, bits, score_bf16: bool):
     rc = lib.ycnr_fused_scores(
         rows.data_ptr(), V.data_ptr(), bi.data_ptr(), bits.data_ptr(),
         segmax.data_ptr(), s3.data_ptr(), u_b, k, n_seg, int(score_bf16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check(rc, "ycnr_fused_scores")
     launches += 1
     return segmax, s3

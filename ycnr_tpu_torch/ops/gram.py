@@ -1,7 +1,7 @@
 """Gather -> Gram -> guarded batched solve on the blocked layout.
 
 Counterpart of ``ycnr_tpu/ops/gram.py``. One block of a ``BlockedCSR``
-(``ycnr_tpu.ops.layout``) is solved as:
+(``ops/layout.py``) is solved as:
 
     gather rows of the other factor        ``row_gather`` (kernel on CUDA)
     chunk Grams and right-hand sides       two einsums  [C_B, L, k]
@@ -21,6 +21,8 @@ import torch
 
 from ycnr_tpu_torch.ops.row_gather import row_gather
 from ycnr_tpu_torch.ops.spd_solve import spd_solve
+
+guarded_solves = 0  # guarded_batched_solve calls since the last reset
 
 
 class BlockData(NamedTuple):
@@ -85,6 +87,8 @@ def guarded_batched_solve(A: torch.Tensor, b: torch.Tensor,
     plain Cholesky; on CUDA it is K1 (``ops/spd_solve.py``), which raises
     for what it does not take (float64, n > 128).
     """
+    global guarded_solves
+    guarded_solves += 1
     k = A.shape[-1]
     eye = torch.eye(k, dtype=A.dtype, device=A.device)
     A = A + reg[:, None, None] * eye

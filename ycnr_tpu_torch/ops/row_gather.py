@@ -22,7 +22,8 @@ import torch
 
 from ycnr_tpu_torch.ops import _build
 
-launches = 0  # kernel launches (both entry points) since the last reset
+launches = 0  # row_gather kernel launches since the last reset
+take_launches = 0  # take_along_rows kernel launches since the last reset
 
 _INDEX_DTYPES = (torch.int32, torch.int64)
 
@@ -64,7 +65,7 @@ def row_gather_cuda(table: torch.Tensor, idx: torch.Tensor):
     rc = lib.ycnr_row_gather(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), n,
         w * table.element_size(), int(idx.dtype == torch.int64),
-        torch.cuda.current_stream(table.device).cuda_stream)
+        _build.stream(table.device))
     _build.check(rc, "ycnr_row_gather")
     launches += 1
     return out
@@ -86,9 +87,12 @@ def take_along_rows_cuda(table: torch.Tensor, idx2: torch.Tensor):
     """Launch the take-along kernel: out[i, j] = table[idx2[i, j], j].
 
     table [n, w] bf16/f32 (or any 2- or 4-byte dtype), idx2 [m, c] with
-    c <= w, int32 or int64 -> [m, c].
+    c <= w, int32 or int64 -> [m, c], bit-equal to ``torch.gather``. The
+    kernel moves 16-byte runs of output with 16-byte index loads, and one
+    16-byte table load where a run's indices are all equal (row-broadcast
+    indices, T3's form).
     """
-    global launches
+    global take_launches
     _check(table, idx2, "take_along_rows")
     n, w = table.shape
     if table.element_size() not in (2, 4):
@@ -107,9 +111,9 @@ def take_along_rows_cuda(table: torch.Tensor, idx2: torch.Tensor):
     rc = lib.ycnr_take_along_rows(
         table.data_ptr(), idx2.data_ptr(), out.data_ptr(), m, c, w, n,
         table.element_size(), int(idx2.dtype == torch.int64),
-        torch.cuda.current_stream(table.device).cuda_stream)
+        _build.stream(table.device))
     _build.check(rc, "ycnr_take_along_rows")
-    launches += 1
+    take_launches += 1
     return out
 
 

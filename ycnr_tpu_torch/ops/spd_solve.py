@@ -44,7 +44,7 @@ def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return x
     lib = _build.load_library()
     rc = lib.ycnr_spd_solve(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n,
-                            torch.cuda.current_stream(A.device).cuda_stream)
+                            _build.stream(A.device))
     _build.check(rc, "ycnr_spd_solve")
     launches += 1
     return x

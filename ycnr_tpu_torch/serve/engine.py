@@ -22,7 +22,7 @@ from ycnr_tpu_torch.eval.recommend import (
 )
 from ycnr_tpu_torch.models.base import MFState, predict
 from ycnr_tpu_torch.serve.cache import RecCache
-from ycnr_tpu_torch.shared import build_blocked_csr
+from ycnr_tpu_torch.ops.layout import build_blocked_csr
 
 
 class Recommender:

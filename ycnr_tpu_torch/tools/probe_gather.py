@@ -3,7 +3,10 @@
 
 Gathers m rows (default 2^23) from a factor table of 26,752 rows (the
 ML-20M items table, padded: the U-phase's access pattern) at widths 64
-and 128, bf16 and f32, and times with CUDA events:
+and 128, bf16 and f32, and times device time per call over a CUDA graph
+of ``--iters`` calls (which holds that many outputs: 4.3 GB each at
+m = 2^23, w 128, f32). The table stays in the L2 from call to call, as the
+U-phase finds it:
 
   plain_*        PyTorch indexing ``table[idx]`` (int32 indices)
   kernel_*       ``row_gather`` (csrc/row_gather.cu; the TPU probe's
@@ -46,20 +49,52 @@ from ycnr_tpu_torch.ops.row_gather import (
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-def cuda_ns_per_row(fn, rows: int, iters: int, warmup: int = 2) -> float:
-    """Mean device nanoseconds per row over ``iters`` calls (CUDA events,
-    after ``warmup`` calls)."""
-    for _ in range(warmup):
-        fn()
+L2_BYTES = 50 * 2 ** 20  # the H100's L2
+
+
+def graph_ms(fn, iters: int, warmup: int = 2, sets=((),)) -> float:
+    """Mean device milliseconds per call over ``iters`` calls, from one
+    CUDA graph of them replayed (CUDA events, after ``warmup`` calls on a
+    side stream): device time, without the host's launch cost, which is
+    about a short call's whole time.
+
+    Call i runs ``fn(*sets[i % len(sets)])``, and the graph keeps every
+    call's output, so no call writes over another's. With one set, a call
+    finds the inputs that the call before it read in the L2 (where they
+    fit); with ``cold_sets(...)`` of them it finds its own cold."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fn(*sets[i % len(sets)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(*sets[i % len(sets)]) for i in range(iters)]
+    del outs
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters * 1e6 / rows
+    return start.elapsed_time(end) / iters
+
+
+def cold_sets(tensors, call_bytes: int, iters: int):
+    """Copies of ``tensors`` for ``graph_ms(sets=...)``: enough that the
+    calls between two uses of one copy move four L2s' worth of
+    ``call_bytes`` each, which evicts that copy; at most ``iters``."""
+    k = min(iters, max(2, 1 + -(-4 * L2_BYTES // max(1, call_bytes))))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(k - 1)]
+
+
+def cuda_ns_per_row(fn, rows: int, iters: int) -> float:
+    """Mean device nanoseconds per row over ``iters`` calls (``graph_ms``)."""
+    return graph_ms(fn, iters) * 1e6 / rows
 
 
 def device_name() -> str:
@@ -74,7 +109,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--m", type=int, default=23,
                     help="log2 of gathered rows per call")
     ap.add_argument("--n", type=int, default=26_752, help="table rows")
-    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--gram", action="store_true",
                     help="also time the fused gather -> Gram kernel")
     args = ap.parse_args(argv)

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ycnr_tpu_torch import resolve_device
 from ycnr_tpu_torch.models.base import MFState, state_from_numpy
 
 _MANIFEST = "manifest.json"
@@ -79,9 +80,10 @@ def save_checkpoint(path: str, state: MFState, epoch: int,
     _gc_stale_arrays(path, arrays)
 
 
-def load_checkpoint(path: str, device="cpu") -> Tuple[MFState, dict]:
+def load_checkpoint(path: str, device=None) -> Tuple[MFState, dict]:
     """Restore (state, manifest) from an npz-backend checkpoint directory
-    written by either package."""
+    written by either package, onto ``device`` (None: the card)."""
+    device = resolve_device(device, "load_checkpoint()")
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     if manifest.get("backend", "npz") != "npz":

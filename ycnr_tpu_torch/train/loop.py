@@ -19,7 +19,9 @@ from typing import Optional
 
 import torch
 
-from ycnr_tpu_torch import full_precision_matmul
+from ycnr_tpu_torch import full_precision_matmul, resolve_device
+from ycnr_tpu_torch.config import RunConfig
+from ycnr_tpu_torch.data.dataset import Dataset, load_dataset
 from ycnr_tpu_torch.models.base import (
     MFState,
     init_state,
@@ -30,14 +32,10 @@ from ycnr_tpu_torch.models.bucketed_phase import (
     als_epoch_fn,
     device_bucketed,
     ials_epoch_fn,
+    uses_fused,
 )
-from ycnr_tpu_torch.shared import (
-    Dataset,
-    RunConfig,
-    build_bucketed,
-    load_dataset,
-    pad_coo,
-)
+from ycnr_tpu_torch.ops.bucketed import build_bucketed
+from ycnr_tpu_torch.ops.layout import pad_coo
 from ycnr_tpu_torch.train.checkpoint import save_checkpoint
 
 
@@ -71,11 +69,7 @@ def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
     device the default raises; a CPU run passes ``device="cpu"``."""
     _check_supported(cfg)
     full_precision_matmul()
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("train(): no CUDA device; pass device='cpu' "
-                               "for a CPU run")
-        device = "cuda"
+    device = resolve_device(device, "train()")
     params = cfg.als if cfg.algorithm == "als" else cfg.ials
     ds = dataset or load_dataset(cfg.data, rank_hint=params.rank)
     out = out_dir if out_dir is not None else (
@@ -90,19 +84,21 @@ def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
     test_coo = (pu, pi, pr, n_test)
     train_coo = (pad_coo(ds.train_u, ds.train_i, ds.train_r, ds.n_users,
                          ds.n_items) if cfg.log_train_rmse else None)
+    alpha = None if cfg.algorithm == "als" else cfg.ials.alpha
+    rating_dtype = (torch.bfloat16 if uses_fused(device, dtype, alpha, bf16)
+                    else dtype)
     dul = device_bucketed(build_bucketed(
         ds.train_u, ds.train_i, ds.train_r, ds.n_users, ds.n_items,
         cfg.data.chunk_len, params.rank, max_groups=cfg.data.max_groups),
-        dtype, device)
+        dtype, device, rating_dtype)
     dil = device_bucketed(build_bucketed(
         ds.train_i, ds.train_u, ds.train_r, ds.n_items, ds.n_users,
         cfg.data.chunk_len, params.rank, max_groups=cfg.data.max_groups),
-        dtype, device)
+        dtype, device, rating_dtype)
     if cfg.algorithm == "als":
         epoch_fn = als_epoch_fn(dul, dil, cfg.als.lam, bf16)
     else:
-        epoch_fn = ials_epoch_fn(dul, dil, cfg.ials.lam, cfg.ials.alpha,
-                                 bf16)
+        epoch_fn = ials_epoch_fn(dul, dil, cfg.ials.lam, alpha, bf16)
 
     history = []
     for epoch in range(params.epochs):
