@@ -3,12 +3,18 @@
 Run from the repository root:  python3 chip_smoke.py
 
 1. device: needs CUDA (exits 1 without it; there is no CPU path);
-2. build: compiles the CUDA kernels from ``ycnr_tpu_torch/csrc``;
+2. build: compiles the CUDA kernels (nvcc) and the native MovieLens parser
+   (g++) from ``ycnr_tpu_torch/csrc``; the parser is held to the Python
+   parser on a 200,000-row file;
 3. K1 (batched SPD solve) against its plain version in float64, n = 10,
    32, 64, 128, with padding and ill-conditioned (guarded) systems; timed
-   beside the plain solve and ``torch.linalg.solve``;
-4. K2 (fused masked scorer) against its plain version on one
-   MovieLens-20M-width serving block, bf16 and f32 score buffers;
+   beside the plain solve and ``torch.linalg.solve`` at B = 20,000, and
+   alone at B = 8 and B = 256;
+4. K2 (fused masked scorer) on one MovieLens-20M-width serving block and
+   on one ragged block (rank 10), bf16 and f32 score buffers: within its
+   stated bound of its plain version and of a float64 sum, rated and
+   padding columns exactly ``NEG_INF``, segment maxima exactly those of
+   the stored scores;
 5. ``row_gather`` against ``table[idx]`` and ``take_along_rows`` against
    ``torch.gather``, bit for bit, at widths 64/128, bf16/f32, int32/int64
    indices, from the 26,744-row and 480,189-row tables; each timed beside
@@ -21,7 +27,7 @@ Run from the repository root:  python3 chip_smoke.py
    trajectory and to PR 2's; epoch 3 profiled by kernel;
 7. serving: ``Recommender.precompute_all`` through K2 for every user,
    checked against the exact scorer on a sample, plus single and batch
-   requests;
+   requests; one serving pass profiled by kernel;
 8. the blocked-layout path (``ALSWR``, ``ImplicitALS``: row gather,
    sorted-segment sums, K1) at full width: every block's gather bit-equal
    to plain indexing, then the path against the bucketed path with f32
@@ -40,8 +46,10 @@ name and power limit (``nvidia-smi``), a JSON line of per-kernel results
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,6 +80,7 @@ MAIN = dict(n_users=138_493, n_items=26_744, n_ratings=20_000_263, rank=64,
 # 80GB HBM3, 700 W), and PR 2's held-out RMSE trajectory
 PR1_S_EPOCH = 0.1175
 PR2_S_EPOCH = 0.0507
+PR3_S_EPOCH = 0.0230
 PR2_RMSE = (1.677441, 0.581494, 0.538312, 0.498509)
 PR2_RMSE_TOL = 1e-4
 # The blocked path against the bucketed path, same start, f32 gathers:
@@ -186,6 +195,16 @@ def phase_k1(dev) -> dict:
         f"cholesky + cholesky_solve, f32) {plain_ms:.4f} ms, "
         f"torch.linalg.solve {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
         f"({bnd[1]})")
+    from ycnr_tpu_torch.tools.probe_gather import graph_ms
+
+    # calls with few systems (the epoch's longest rating lists come 8 to a
+    # call): device time over a CUDA graph, as a call is shorter than the
+    # host's launch
+    for small in (8, 256):
+        As, bs = A[:small].contiguous(), b[:small].contiguous()
+        log(f"K1 n={n} B={small}: kernel "
+            f"{graph_ms(lambda: spd_solve_cuda(As, bs), 20):.4f} ms "
+            f"(device time, CUDA graph of 20 calls)")
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1]}
@@ -201,14 +220,13 @@ def random_rated_bits(n_users: int, n_items: int, density: float, seed: int):
     return np.packbits(mask, axis=1, bitorder="little").view("<u4")
 
 
-def phase_k2(dev) -> dict:
+def k2_inputs(n_users: int, n_items: int, k: int, seed: int, dev):
+    """One serving block: N(0, 0.5) factors, N(0, 0.1) biases, 1% of the
+    items rated, trash and pad columns masked."""
     from ycnr_tpu_torch.eval.recommend import bits_tensor
-    from ycnr_tpu_torch.ops.fused_topn import fused_scores_cuda, \
-        fused_scores_reference
 
-    n_users, n_items, k = 4096, 26_744, 64
-    rng = np.random.default_rng(7)
-    bits_np = random_rated_bits(n_users, n_items, 0.01, seed=8)
+    rng = np.random.default_rng(seed)
+    bits_np = random_rated_bits(n_users, n_items, 0.01, seed=seed + 1)
     m = bits_np.shape[1] * 32
     V = np.zeros((m, k), np.float32)
     V[:n_items] = rng.normal(0, 0.5, (n_items, k))
@@ -216,35 +234,107 @@ def phase_k2(dev) -> dict:
     bi[:n_items] = rng.normal(0, 0.1, n_items)
     rows = torch.as_tensor(rng.normal(0, 0.5, (n_users, k)), device=dev,
                            dtype=torch.float32).to(torch.bfloat16)
-    Vt = torch.as_tensor(V, device=dev).to(torch.bfloat16)
-    bit = torch.as_tensor(bi, device=dev)
-    bits = bits_tensor(bits_np, dev)
+    return (rows, torch.as_tensor(V, device=dev).to(torch.bfloat16),
+            torch.as_tensor(bi, device=dev), bits_tensor(bits_np, dev))
+
+
+def k2_check(name: str, rows, V, bi, bits, n_items: int, score_bf16: bool):
+    """K2 against its plain version (f32 scores) within the stated bound,
+    against a float64 sum, and its exact invariants. Returns the kernel's
+    outputs and its largest error against the plain version."""
+    from ycnr_tpu_torch.ops.fused_topn import (NEG_INF, fused_scores_bound,
+                                               fused_scores_cuda,
+                                               fused_scores_reference)
+
+    seg_k, s3_k = fused_scores_cuda(rows, V, bi, bits, score_bf16)
+    seg_p, s3_p = fused_scores_reference(rows, V, bi, bits, False)
+    sync()
+    u_b, n_seg = seg_k.shape
+    flat_k = s3_k.reshape(u_b, -1).float()
+    flat_p = s3_p.reshape(u_b, -1)
+    masked = flat_p == NEG_INF
+    check(bool(masked[:, n_items:].all()), f"K2 {name}: pad columns masked")
+    neg = torch.tensor(NEG_INF, device=rows.device).to(s3_k.dtype).float()
+    exact_mask = bool((flat_k[masked] == neg).all()
+                      and (flat_k[~masked] > NEG_INF / 2).all())
+    bound = fused_scores_bound(rows, V, bi)
+    tol = bound + 2.0 ** -7 * flat_p.abs() if score_bf16 else bound
+    err = torch.where(masked, torch.zeros_like(flat_k),
+                      (flat_k - flat_p).abs())
+    share = (err / tol.clamp_min(1e-30)).max().item()
+    seg_err = (seg_k - seg_p).abs()
+    seg_ok = bool((seg_err <= bound.reshape(u_b, n_seg, -1).amax(2)).all())
+    del tol, bound
+    top = s3_k.amax(2)
+    seg_exact = (torch.equal(seg_k.bfloat16(), top) if score_bf16
+                 else torch.equal(seg_k, top))
+    s64 = rows.double() @ V.double().T + bi.double()[None, :]
+    err64 = torch.where(masked, torch.zeros_like(s64),
+                        (flat_k.double() - s64).abs())
+    b64 = fused_scores_bound(rows, V, bi, f64=True)
+    if score_bf16:  # the stored scores are rounded to bf16
+        b64 = b64 + 2.0 ** -8 * s64.abs()
+    share64 = (err64 / b64.clamp_min(1e-300)).max().item()
+    perr64 = torch.where(masked, torch.zeros_like(s64),
+                         (flat_p.double() - s64).abs()).max().item()
+    log(f"K2 {name}: rated and pad columns exactly NEG_INF, no other: "
+        f"{exact_mask}; segmax {'.bfloat16() ' if score_bf16 else ''}== "
+        f"s3.amax(2) exactly: {seg_exact}; max |s3 - plain| "
+        f"{err.max().item():.3e} ({share:.3e} of the stated bound), max "
+        f"|segmax - plain| {seg_err.max().item():.3e} (within the bound: "
+        f"{seg_ok}); max |s3 - float64 sum| {err64.max().item():.3e} "
+        f"({share64:.3e} of its bound; plain f32 version "
+        f"{perr64:.3e})")
+    check(exact_mask, f"K2 {name}: rated and pad columns exactly NEG_INF")
+    check(seg_exact, f"K2 {name}: segmax equals the stored scores' maxima")
+    check(share <= 1.0, f"K2 {name}: s3 within the bound of the plain "
+          f"version")
+    check(seg_ok, f"K2 {name}: segmax within the bound of the plain "
+          f"version")
+    check(share64 <= 1.0, f"K2 {name}: s3 within the bound of a float64 "
+          f"sum")
+    return seg_k, s3_k, max(err.max().item(), seg_err.max().item())
+
+
+def phase_k2(dev) -> dict:
+    from ycnr_tpu_torch.ops.fused_topn import (fused_scores_cuda,
+                                               fused_scores_reference)
+
+    # a ragged block first: 1,000 users (not whole tiles), rank 10 (rows
+    # not whole 16-byte chunks, padded to 16 in the kernel)
+    rag = k2_inputs(1000, 3000, 10, 17, dev)
+    for score_bf16 in (True, False):
+        k2_check(f"{'bf16' if score_bf16 else 'f32'} scores, ragged 1000 "
+                 f"users x 3000 items, k=10", *rag, 3000, score_bf16)
+    n_users, n_items, k = 4096, 26_744, 64
+    rows, Vt, bit, bits = k2_inputs(n_users, n_items, k, 7, dev)
+    m = Vt.shape[0]
     out = {}
     for score_bf16 in (True, False):
-        seg_k, s3_k = fused_scores_cuda(rows, Vt, bit, bits, score_bf16)
-        seg_p, s3_p = fused_scores_reference(rows, Vt, bit, bits, score_bf16)
-        sync()
         name = "bf16" if score_bf16 else "f32"
-        diff = max((seg_k - seg_p).abs().max().item(),
-                   (s3_k.float() - s3_p.float()).abs().max().item())
-        log(f"K2 {name} scores, {n_users} users x {n_items} items, k={k}: "
-            f"segmax equal {torch.equal(seg_k, seg_p)}, s3 equal "
-            f"{torch.equal(s3_k, s3_p)}, max abs diff {diff}")
-        check(torch.equal(seg_k, seg_p), f"K2 {name}: segmax exact")
-        check(torch.equal(s3_k, s3_p), f"K2 {name}: s3 exact")
+        seg_k, s3_k, diff = k2_check(
+            f"{name} scores, {n_users} users x {n_items} items, k={k}",
+            rows, Vt, bit, bits, n_items, score_bf16)
+        # in turns: plain, kernel, kernel, plain
+        plain_ms = cuda_ms(lambda: fused_scores_reference(
+            rows, Vt, bit, bits, score_bf16), iters=2, warmup=1)
         ms = cuda_ms(lambda: fused_scores_cuda(rows, Vt, bit, bits,
                                                score_bf16))
-        plain_ms = cuda_ms(lambda: fused_scores_reference(
-            rows, Vt, bit, bits, score_bf16), iters=3, warmup=1)
+        ms = min(ms, cuda_ms(lambda: fused_scores_cuda(rows, Vt, bit, bits,
+                                                       score_bf16)))
+        plain_ms = min(plain_ms, cuda_ms(lambda: fused_scores_reference(
+            rows, Vt, bit, bits, score_bf16), iters=2, warmup=0))
         # read rows, V, bias, bits; write segmax and s3; U.V^T in bf16
         nbytes = (2 * (n_users + m) * k + 4 * m + bits.numel() * 4
                   + seg_k.numel() * 4 + s3_k.numel() * s3_k.element_size())
         bnd = bound_ms(nbytes, 2 * n_users * m * k, PEAK_BF16)
         log(f"K2 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]}); no single PyTorch call computes "
-            f"masked scores with segment maxima")
+            f"{bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / ms:.3f} of the bound; no "
+            f"single PyTorch call computes masked scores with segment "
+            f"maxima")
         out[name] = {"max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1]}
+        del seg_k, s3_k
     return out
 
 
@@ -433,6 +523,34 @@ def phase_fused_gram(state, dul, dil) -> dict:
         f"a gathered Gram")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def phase_ingest():
+    """The native parser, built here, against the Python parser on an
+    ML-20M-format file with a header (host code; no kernel)."""
+    from ycnr_tpu_torch.data import movielens, native
+    from ycnr_tpu_torch.tools.bench_ingest import generate
+
+    t0 = time.time()
+    check(native.load_library() is not None, "the native parser built")
+    log(f"build: native parser compiled and loaded in "
+        f"{time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ratings.csv")
+        generate(path, 200_000)
+        t0 = time.time()
+        got = native.parse_ratings_native(path, ",", want_ts=True)
+        t_native = time.time() - t0
+        t0 = time.time()
+        want = movielens._parse_python(path, ",", want_ts=True)
+        t_python = time.time() - t0
+        loaded = movielens.load_movielens(path)
+    check(got is not None and all(np.array_equal(g, w)
+                                  for g, w in zip(got, want)),
+          "native parser equals the Python parser")
+    check(len(loaded[0]) == 200_000, "load_movielens read every row")
+    log(f"ingest: 200,000 rows, native parser {t_native:.3f} s, Python "
+        f"parser {t_python:.3f} s, equal arrays")
 
 
 def reset_launches():
@@ -675,6 +793,7 @@ def run(dev):
     _build.load_library()
     log(f"build: kernels compiled and loaded in {time.time() - t0:.1f} s")
 
+    phase_ingest()
     k1 = phase_k1(dev)
     sync()
     k2 = phase_k2(dev)
@@ -746,8 +865,9 @@ def run(dev):
               f"PR 2's {pr2} (only the summation order changed)")
     wall = (times[1] + times[3]) / 2
     log(f"s/epoch, epochs 2-4: {times[1]:.4f} {times[2]:.4f} (profiled) "
-        f"{times[3]:.4f}; epochs 2 and 4 mean {wall:.4f} (PR 2: "
-        f"{PR2_S_EPOCH}, PR 1: {PR1_S_EPOCH} on the same card type) on "
+        f"{times[3]:.4f}; epochs 2 and 4 mean {wall:.4f} (PR 3: "
+        f"{PR3_S_EPOCH}, PR 2: {PR2_S_EPOCH}, PR 1: {PR1_S_EPOCH} on the "
+        f"same card type) on "
         f"{smi}; epoch 3's device time is {dev_ms / 1e3 / wall:.3f} of that "
         f"wall (device idle {max(0.0, 1 - dev_ms / 1e3 / wall):.3f})")
     for ep, (got, want) in enumerate(zip(rmse, PR2_RMSE)):
@@ -828,6 +948,8 @@ def run(dev):
         state, eids, bits, 10), iters=3, warmup=1)
     exact_ms = cuda_ms(lambda: _topn_blocks(state, dlay, 10, bits),
                        iters=3, warmup=1)
+    profile_breakdown(lambda: fused_topn.fused_topn_blocks(
+        state, eids, bits, 10), "one fused serving pass")
     log(f"serving pass, {served:,} users top-10: fused {fused_ms:.1f} ms = "
         f"{served / fused_ms * 1e3:,.0f} recs/s; exact {exact_ms:.1f} ms = "
         f"{served / exact_ms * 1e3:,.0f} recs/s; on {smi}")

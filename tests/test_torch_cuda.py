@@ -1,4 +1,5 @@
-"""The port's kernels on the card against their plain versions: K1, K2,
+"""The port's kernels on the card against their plain versions: K1 (a
+float64 solve), K2 (its bound, a float64 sum and its exact invariants),
 the row gather and take-along gather (bit equality) and the fused
 gather -> Gram with and without the ridge (its bound, and a float64 sum).
 
@@ -32,7 +33,7 @@ def dev():
 def _spd(B, n, seed, dev):
     rng = np.random.default_rng(seed)
     M = rng.normal(size=(B, n, n))
-    A = np.einsum("bij,bkj->bik", M, M) / n + 0.5 * np.eye(n)
+    A = M @ M.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
     A[:3] = np.eye(n)  # padding systems
     b = rng.normal(size=(B, n))
     b[:3] = 0
@@ -40,9 +41,10 @@ def _spd(B, n, seed, dev):
             torch.as_tensor(b, dtype=torch.float32, device=dev))
 
 
-@pytest.mark.parametrize("n", [1, 10, 64, 100, 128])
-def test_k1_matches_float64_reference(dev, n):
-    A, b = _spd(257, n, n, dev)
+@pytest.mark.parametrize("B", [1, 257, 5000])
+@pytest.mark.parametrize("n", [1, 5, 10, 16, 17, 32, 33, 64, 65, 100, 128])
+def test_k1_matches_float64_reference(dev, n, B):
+    A, b = _spd(B + 3, n, n, dev)
     before = sp.launches
     x = sp.spd_solve(A, b)
     torch.cuda.synchronize()
@@ -63,22 +65,80 @@ def test_k1_refuses_what_it_does_not_take(dev):
         sp.spd_solve(A, b)
 
 
-@pytest.mark.parametrize("score_bf16", [True, False])
-def test_k2_matches_plain_version_exactly(dev, score_bf16):
-    rng = np.random.default_rng(1)
-    u_b, k, n_seg = 77, 64, 5
+def _k2_inputs(u_b, k, n_seg, seed, dev):
+    rng = np.random.default_rng(seed)
     m = n_seg * ft.SEG_LEN
     rows = torch.as_tensor(rng.normal(size=(u_b, k)), device=dev).bfloat16()
     V = torch.as_tensor(rng.normal(size=(m, k)), device=dev).bfloat16()
     bi = torch.as_tensor(rng.normal(size=m), dtype=torch.float32, device=dev)
     bits = torch.as_tensor(rng.integers(-2**31, 2**31, (u_b, 4 * n_seg)),
                            dtype=torch.int32, device=dev)
-    before = ft.launches
+    bits[:, -1] = -1  # the last 32 columns masked for every user
+    return rows, V, bi, bits
+
+
+def _k2_check(rows, V, bi, bits, score_bf16):
+    """K2 against the plain version within the stated bound, against a
+    float64 sum, and its exact invariants."""
     seg, s3 = ft._fused_scores(rows, V, bi, bits, score_bf16)
-    seg_p, s3_p = ft.fused_scores_reference(rows, V, bi, bits, score_bf16)
+    seg_p, s3_p = ft.fused_scores_reference(rows, V, bi, bits, False)
     torch.cuda.synchronize()
+    u_b, n_seg = seg.shape
+    bound = ft.fused_scores_bound(rows, V, bi)
+    masked = s3_p.reshape(u_b, -1) == ft.NEG_INF
+    assert masked[:, -32:].all()
+    assert s3.dtype == (torch.bfloat16 if score_bf16 else torch.float32)
+    assert s3.shape == (u_b, n_seg, ft.SEG_LEN)
+    flat = s3.reshape(u_b, -1).float()
+    neg = torch.tensor(ft.NEG_INF, device=s3.device).to(s3.dtype).float()
+    assert torch.all(flat[masked] == neg)
+    assert torch.all(flat[~masked] > ft.NEG_INF / 2)
+    tol = bound + (2.0 ** -7 * s3_p.reshape(u_b, -1).abs()
+                   if score_bf16 else 0.0)
+    err = (flat - s3_p.reshape(u_b, -1)).abs()
+    assert torch.all(err[~masked] <= tol[~masked])
+    assert torch.all((seg - seg_p).abs()
+                     <= bound.reshape(u_b, n_seg, -1).amax(2))
+    if score_bf16:
+        assert torch.equal(seg.bfloat16(), s3.amax(2))
+    else:
+        assert torch.equal(seg, s3.amax(2))
+        s64 = rows.double() @ V.double().T + bi.double()[None, :]
+        b64 = ft.fused_scores_bound(rows, V, bi, f64=True)
+        assert torch.all((flat.double() - s64).abs()[~masked]
+                         <= b64[~masked])
+
+
+@pytest.mark.parametrize("score_bf16", [True, False])
+def test_k2_matches_plain_version_exactly(dev, score_bf16):
+    """Since K2 multiplies on the tensor cores it matches the plain
+    version within its stated bound, and exactly in what is exact: masked
+    columns and the segment maxima of the stored scores."""
+    rows, V, bi, bits = _k2_inputs(77, 64, 5, 1, dev)
+    before = ft.launches
+    _k2_check(rows, V, bi, bits, score_bf16)
     assert ft.launches == before + 1
-    assert torch.equal(seg, seg_p) and torch.equal(s3, s3_p)
+
+
+@pytest.mark.parametrize("score_bf16", [True, False])
+@pytest.mark.parametrize("u_b,k,n_seg", [
+    (1, 1, 1), (5, 10, 3), (129, 10, 11), (300, 64, 210), (128, 16, 2),
+    (1000, 24, 7), (200, 128, 9), (70, 200, 4), (130, 256, 3)])
+def test_k2_ragged_shapes_and_ranks(dev, u_b, k, n_seg, score_bf16):
+    _k2_check(*_k2_inputs(u_b, k, n_seg, u_b + k, dev), score_bf16)
+
+
+def test_k2_unaligned_views(dev):
+    """Contiguous views off a 16-byte boundary take the plain-load
+    staging."""
+    rows, V, bi, bits = _k2_inputs(50, 64, 3, 2, dev)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        buf[1:].copy_(x.reshape(-1))
+        return buf[1:].view(x.shape)
+
+    _k2_check(shifted(rows), shifted(V), shifted(bi), shifted(bits), True)
 
 
 def test_k2_refuses_f32_rows(dev):

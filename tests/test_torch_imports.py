@@ -55,7 +55,8 @@ _SLICE_MODULES = {
     "ycnr_tpu_torch.config", "ycnr_tpu_torch.data.dataset",
     "ycnr_tpu_torch.data.movielens", "ycnr_tpu_torch.data.split",
     "ycnr_tpu_torch.data.synthetic", "ycnr_tpu_torch.ops.bucketed",
-    "ycnr_tpu_torch.ops.layout",
+    "ycnr_tpu_torch.ops.layout", "ycnr_tpu_torch.data.native",
+    "ycnr_tpu_torch.tools.bench_solve_score",
 }
 
 

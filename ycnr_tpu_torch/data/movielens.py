@@ -1,10 +1,12 @@
 """MovieLens file parsers (the port's copy of ``ycnr_tpu/data/movielens.py``).
 
 Parses ``u.data`` (tab), ``ratings.dat`` (``::``) and ``ratings.csv``
-(comma) straight to packed int32/float32 arrays. The JAX package parses
-with its native C++ library first; the port keeps only the Python parser,
-which skips malformed rows as that library does, so both give the same
-arrays. Raw ids are densified to contiguous row indices.
+(comma) straight to packed int32/float32 arrays. As in the JAX package,
+the native C++ parser (``data/native.py``, ``csrc/ingest.cc``) goes first;
+the Python parser serves a host without ``g++`` and files on which the
+native parser finds no row it can read, and skips malformed rows as the
+native one does, so a file gives the same arrays either way. Raw ids are
+densified to contiguous row indices.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from ycnr_tpu_torch.data.native import parse_ratings_native
 
 _FORMATS = {
     ".data": "\t",  # ml-100k u.data: user \t item \t rating \t ts
@@ -41,8 +45,7 @@ def _parse_python(path: str, sep: str, want_ts: bool = False):
                     continue
             parts = line.split(sep)
             # skip malformed rows instead of aborting the parse, as the
-            # JAX package's native parser does, so a file imports the same
-            # through either package
+            # native parser does, so a file imports the same either way
             try:
                 uu = int(parts[0])
                 ii = int(parts[1])
@@ -101,7 +104,9 @@ def load_movielens(path: str, densify: bool = True, return_maps: bool = False,
     """
     sep = _sep_for(path)
     ts = None
-    parsed = _parse_python(path, sep, want_ts=return_ts)
+    parsed = parse_ratings_native(path, sep, want_ts=return_ts)
+    if parsed is None:
+        parsed = _parse_python(path, sep, want_ts=return_ts)
     if return_ts:
         u, i, r, ts = parsed
     else:

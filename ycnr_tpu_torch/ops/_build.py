@@ -60,7 +60,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ycnr_spd_solve.argtypes = [p, p, p, i, i, p]
     lib.ycnr_spd_solve.restype = i
-    lib.ycnr_fused_scores.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.ycnr_fused_scores.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                      p]
     lib.ycnr_fused_scores.restype = i
     lib.ycnr_row_gather.argtypes = [p, p, p, ll, ll, i, i, p]
     lib.ycnr_row_gather.restype = i

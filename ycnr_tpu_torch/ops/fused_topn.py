@@ -12,6 +12,27 @@ among their ``n * 128`` candidates.
 
 Unlike the TPU kernel, kernel slot j is catalog item j: the item
 permutation that ``pltpu.repeat``'s tiling forced there has no counterpart.
+
+Numbers. K2 (``csrc/fused_topn.cu``) multiplies on the tensor cores, the
+plain version sums in k order; every product of two bf16 values is exact
+in f32, so the two differ only in how the sums are rounded. Write
+``P = sum_k |r_k| |v_k|``. The plain version adds k terms and the bias
+with round-to-nearest: at most ``(k + 1) 2^-24 (P + |bi|)`` from the
+exact sum. An ``mma`` step adds 16 products to the accumulator after
+aligning them to the largest exponent and may truncate, which costs at
+most 18 ulps of the largest of those 17 terms, i.e. ``36 2^-24`` of their
+absolute sum; K2 takes ``ceil(k / 16)`` such steps and then adds the bias
+with round-to-nearest. Together, with a factor of two to spare::
+
+    |s - s_plain| <= c(k) 2^-24 (P + |bi|),  c(k) = 2 (36 ceil(k/16) + k + 2)
+    |s - s_f64|   <= c64(k) 2^-24 (P + |bi|), c64(k) = 2 (36 ceil(k/16) + 1)
+
+(``fused_scores_bound``; c(64) = 420). ``segmax`` is within the largest
+bound of its segment. A bf16 ``s3`` rounds scores that differ by that
+much, so its entries may differ by one bf16 step (``2^-7 |s|``) more.
+What is exact stays exact, in both versions: a rated or padding column
+is ``NEG_INF``; with f32 scores ``segmax == s3.amax(2)``; with bf16 scores
+``segmax.bfloat16() == s3.amax(2)`` (rounding is monotone).
 """
 
 from __future__ import annotations
@@ -24,7 +45,10 @@ NEG_INF = -3.0e38  # matches eval.recommend.NEG_INF (finite: no inf - inf)
 
 SEG_LEN = 128  # score segment length; the rated-bits words align to it
 MAX_K = 256
-_MAX_USERS = 65_535 * 32  # grid.y * users per block
+# K2's grid: blocks of 128 users (64 above k = 128, where a stage of V is
+# larger) by runs of consecutive segments, about _BLOCKS_PER_SM blocks for
+# every SM of the card
+_BLOCKS_PER_SM = 8
 
 launches = 0  # K2 launches since the last reset (chip_smoke reads it)
 
@@ -35,13 +59,35 @@ def fused_supported(n_items: int, n: int) -> bool:
     return s > n and n <= 64
 
 
+def partition(u_b: int, k: int, n_seg: int, sms: int):
+    """K2's work split: (users per block, segments per block). Block
+    (i, j) scores users [i tile, (i + 1) tile) against segments
+    [j run, (j + 1) run), both cut at the arrays' ends. The run is the
+    longest that still gives the card ``_BLOCKS_PER_SM * sms`` blocks."""
+    tile = 128 if k <= 128 else 64
+    tiles = -(-u_b // tile)
+    runs = max(1, min(n_seg, -(-_BLOCKS_PER_SM * sms // tiles)))
+    return tile, -(-n_seg // runs)
+
+
+def fused_scores_bound(rows, V, bi, f64: bool = False) -> torch.Tensor:
+    """[U_B, M] elementwise tolerance between K2's f32 scores and the plain
+    version's (module docstring), or a float64 sum's with ``f64``."""
+    k = rows.shape[1]
+    steps = -(-k // 16)
+    c = 2.0 * (36 * steps + 1) if f64 else 2.0 * (36 * steps + k + 2)
+    dt = torch.float64 if f64 else torch.float32
+    P = rows.abs().to(dt) @ V.abs().to(dt).T
+    return c * 2.0 ** -24 * (P + bi.abs().to(dt)[None, :])
+
+
 def fused_scores_reference(rows, V, bi, bits, score_bf16: bool):
-    """The plain version of K2, bit for bit.
+    """The plain version of K2.
 
     rows [U_B, k] bf16, V [M, k] bf16 (M = 128 * S), bi [M] f32,
     bits [U_B, 4 * S] int32 -> (segmax [U_B, S] f32, s3 [U_B, S, 128]).
-    The dot product is summed in k order in f32, the kernel's order;
-    products of bf16 values are exact in f32, so the sums agree exactly.
+    The dot product is summed in k order in f32; the kernel's tensor-core
+    sum agrees with it within ``fused_scores_bound``.
     """
     u_b, k = rows.shape
     m = V.shape[0]
@@ -81,19 +127,21 @@ def fused_scores_cuda(rows, V, bi, bits, score_bf16: bool):
         raise ValueError(
             f"K2 shapes: rows {tuple(rows.shape)}, V {tuple(V.shape)}, "
             f"bi {tuple(bi.shape)}, bits {tuple(bits.shape)}")
-    if not (1 <= k <= MAX_K and u_b <= _MAX_USERS):
-        raise ValueError(f"K2 takes k <= {MAX_K} and <= {_MAX_USERS} rows, "
-                         f"got k = {k}, {u_b} rows")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"K2 takes 1 <= k <= {MAX_K}, got k = {k}")
     segmax = torch.empty(u_b, n_seg, dtype=torch.float32, device=dev)
     s3 = torch.empty(u_b, n_seg, SEG_LEN, device=dev,
                      dtype=torch.bfloat16 if score_bf16 else torch.float32)
     if u_b == 0:
         return segmax, s3
+    tile, run_len = partition(
+        u_b, k, n_seg, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
     lib = _build.load_library()
     rc = lib.ycnr_fused_scores(
         rows.data_ptr(), V.data_ptr(), bi.data_ptr(), bits.data_ptr(),
         segmax.data_ptr(), s3.data_ptr(), u_b, k, n_seg, int(score_bf16),
-        _build.stream(dev))
+        tile, run_len, _build.stream(dev))
     _build.check(rc, "ycnr_fused_scores")
     launches += 1
     return segmax, s3

@@ -5,6 +5,14 @@ Counterpart of ``ycnr_tpu/ops/pallas_solve.py``. ``spd_solve`` takes
 added) and ``b [B, n]`` and returns ``x [B, n]``. A tensor on the CPU goes
 to ``spd_solve_reference``; a CUDA float32 tensor with ``n <= 128`` goes to
 the hand-written kernel ``csrc/spd_solve.cu``; any other CUDA tensor raises.
+
+Which body of the kernel runs follows from n alone: up to n = 64 one warp
+solves a system with the matrix in registers, padded with an identity
+block to 16, 32 or 64 columns (an LDL^T elimination, columns in order,
+the right-hand side carried as one more row, then a back substitution);
+above, one block solves a system in shared memory. Both are held to a
+float64 solve within the forward error of an f32 Cholesky,
+``cond(A) n 2^-24``; a padding system I x = 0 gives exactly 0.
 """
 
 from __future__ import annotations

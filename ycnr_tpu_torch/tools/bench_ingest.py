@@ -1,7 +1,7 @@
 """Host ingest bench: the port's counterpart of ``tools/bench_ingest.py``.
 
-Times the port's ``data.movielens.load_movielens`` (the line parser, then
-the id densify) on an ML-20M-format ``ratings.csv``, and the port's
+Times the port's ``data.movielens.load_movielens`` (the native parser,
+built with g++ at first use, then the id densify) on an ML-20M-format ``ratings.csv``, and the port's
 layout builds (``ops.bucketed.build_bucketed`` for both sides at rank 64
 and 8 groups, ``ops.layout.build_blocked_csr`` for users) on what it
 parsed. The file is written first if it does not exist, in the format and
