@@ -33,7 +33,30 @@ Run from the repository root:  python3 chip_smoke.py
    to plain indexing, then the path against the bucketed path with f32
    gathers from the same start, held-out RMSE to 1e-4;
 9. fold-in of 256 users against a float64 solve, no rated item served;
-10. the two gather probes at a reduced size (``take_along_rows``).
+10. the two gather probes at a reduced size (``take_along_rows``);
+11. biased SGD at the full width of the ``ml1m-sgd`` preset (synthetic
+    ML-1M shape, rank 16, batch 8,192, 20 epochs) through ``train()``,
+    batched and stream: one batched epoch against the float64 oracle,
+    held-out RMSE falling, the stream run within 0.02 of the batched one,
+    one epoch twice bit-equal, a run resumed from its epoch-10 checkpoint
+    bit-equal to the uninterrupted one, trash rows zero; one epoch of each
+    profiled by kernel;
+12. ``row_gather`` at the row widths those trainers give it (64-, 68- and
+    136-byte rows: its 16-, 4- and 8-byte paths) on their own tables and
+    index batches, bit for bit, timed cold in the L2 beside ``table[idx]``
+    and the bound (and warm, and at 1,048,576 rows from a large table);
+13. BPR at the full width of the ``ml20m-bpr`` preset (rank 32, batch
+    65,536, ``emean``, ``shuffle="batches"``, 2 epochs) through
+    ``train()`` on the ML-20M-shaped set: one epoch of each shuffle mode
+    on the ML-1M-shaped set against the float64 oracle, hit-rate@10 above
+    the start's, ``bu`` and ``mu`` untouched, one epoch twice bit-equal,
+    the final ranking event finite, ``measure_serving`` through the fused
+    scorer (K2 launches, the event says ``fused``); one epoch profiled by
+    kernel;
+14. online serving on the trained main-path state: ``add_ratings`` (row
+    gather + K1) against a float64 solve, ``compact``, ``popular``,
+    ``similar`` / ``precompute_similar`` against a float64 cosine,
+    ``recommend_cold``.
 
 Every path runs with the kernels' launch counts set to 0 just before it,
 and each kernel must have launched on the paths that use it. Every failed
@@ -94,6 +117,15 @@ FOLD_USERS = 256
 GATHER_ROWS = 65_536  # the TPU gather bench's rows per step
 GATHER_ITERS = 20  # calls per CUDA graph when timing a gather
 GATHER_TABLES = (26_744, 480_189)  # ML-20M items, Netflix users
+# SGD and BPR on the card (f32) against the float64 oracle on the host after
+# one epoch from the same start with the same draws: the factors are ~0.1
+# and one epoch's updates sum a few thousand f32 terms per row.
+ORACLE_ATOL = 1e-4
+# the stream trainer's final held-out RMSE against the batched trainer's
+# (the band the JAX package's tests/test_sgd_stream.py pins)
+STREAM_BAND = 0.02
+ONLINE_RTOL = 1e-3  # add_ratings rows against a float64 solve (as fold-in)
+SIM_TOL = 1e-5  # similar(): f32 cosine against float64, ties at the cut
 # H100 SXM peaks (NVIDIA data sheet) for bound_ms: HBM3 bytes/s, dense bf16
 # tensor-core and f32 CUDA-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -754,6 +786,533 @@ def phase_fold_in(state, tu, ti, tr) -> dict:
     return launches
 
 
+def ml1m_sgd_config(method: str, out_dir: str):
+    """The ``ml1m-sgd`` preset on a synthetic set of the ML-1M shape."""
+    import dataclasses
+
+    from ycnr_tpu_torch.config import get_preset
+
+    cfg = get_preset("ml1m-sgd")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, source="synthetic", true_rank=8,
+                                 noise=0.3, seed=0),
+        sgd=dataclasses.replace(cfg.sgd, method=method),
+        out_dir=out_dir, name=f"ml1m-sgd-{method}", checkpoint_every=10)
+
+
+def read_events(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def check_trash_rows(state, what: str):
+    for name, x in zip(("U", "V", "bu", "bi"), state[:4]):
+        check(bool((x[-1] == 0).all()), f"{what}: trash row of {name} is 0")
+        check(bool(torch.isfinite(x).all()), f"{what}: {name} is finite")
+
+
+def states_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def epoch_profile(run_epoch, what: str, smi: str) -> dict:
+    """One epoch under the profiler (device time by kernel) and three
+    unprofiled epochs by the host clock: the idle share is what the device
+    time leaves of their median wall. The wall is a host-clock reading and
+    moves from call to call; a device time above it shows as a negative
+    share."""
+    walls = []
+    for _ in range(3):
+        sync()
+        t0 = time.time()
+        run_epoch()
+        sync()
+        walls.append(time.time() - t0)
+    wall = float(np.median(walls))
+    _, dev_ms = profile_breakdown(run_epoch, what)
+    idle = 1 - dev_ms / 1e3 / wall
+    log(f"{what}: unprofiled walls {[round(w, 4) for w in walls]} s, median "
+        f"{wall:.4f}; {dev_ms:.2f} ms of device time; device idle "
+        f"{idle:.3f} of the median wall; on {smi}")
+    return {"s": wall, "device_ms": dev_ms, "idle": idle}
+
+
+def phase_sgd(dev, ds, tmp: str, smi: str) -> dict:
+    """Biased SGD, batched and stream, at the ``ml1m-sgd`` preset's width
+    through ``train()``."""
+    import dataclasses
+
+    from ycnr_tpu_torch.models.base import (init_state, to_numpy,
+                                            zero_cold_entities)
+    from ycnr_tpu_torch.models.sgd import (BiasedSGD, prepare_sgd_data,
+                                           sgd_epoch)
+    from ycnr_tpu_torch.models.sgd_stream import (StreamSGD,
+                                                  prepare_stream_sgd)
+    from ycnr_tpu_torch.oracle import sgd_epoch_batched
+    from ycnr_tpu_torch.train.loop import train
+
+    cfg = ml1m_sgd_config("batched", tmp)
+    p = cfg.sgd
+    n_users, n_items = ds.n_users, ds.n_items
+
+    def start():
+        return zero_cold_entities(
+            init_state(n_users, n_items, p.rank, seed=cfg.seed, mu=ds.mu,
+                       device=dev), ds.train_u, ds.train_i)
+
+    # ---- one batched epoch, explicit perm, against the float64 oracle ---
+    data = prepare_sgd_data(ds.train_u, ds.train_i, ds.train_r, p.batch_size,
+                            n_users, n_items, device=dev)
+    n_pad = data.u.shape[0]
+    perm = np.random.default_rng(3).permutation(n_pad)
+    st0 = start()
+    # copies: sgd_epoch updates the state in place
+    U0, V0, bu0, bi0 = (x.copy() for x in to_numpy(st0)[:4])
+    reset_launches()
+    got = sgd_epoch(st0, data, perm, p.lam, p.lr, p.batch_size, "sum")
+    sync()
+    check(read_launches()["row_gather"] == 2 * (n_pad // p.batch_size),
+          "row_gather launched twice a batch in sgd_epoch")
+    # the oracle has no mask: it sees the padded COO and moves its trash
+    # rows, which no real rating reads; the real rows are compared
+    want = sgd_epoch_batched(U0, V0, bu0, bi0, ds.mu, data.u.cpu().numpy(),
+                             data.i.cpu().numpy(), data.r.cpu().numpy(),
+                             p.lam, p.lr, p.batch_size, perm)
+    err = max(float(np.abs(g[:-1] - w[:-1]).max())
+              for g, w in zip(to_numpy(got)[:4], want))
+    log(f"sgd_epoch ({n_pad // p.batch_size} batches of {p.batch_size}, "
+        f"rank {p.rank}) against the float64 oracle: max |diff| {err:.3e} "
+        f"(limit {ORACLE_ATOL})")
+    check(err <= ORACLE_ATOL, "sgd_epoch within ORACLE_ATOL of the oracle")
+    check_trash_rows(got, "sgd_epoch")
+
+    out = {}
+    for method in ("batched", "stream"):
+        cfg = ml1m_sgd_config(method, tmp)
+        run_dir = os.path.join(tmp, cfg.name)
+        sync()
+        reset_launches()
+        res = train(cfg, ds)  # device=None: the card
+        launches = read_launches()
+        check(res.state.U.is_cuda, f"SGD {method}: trained on the card")
+        check(launches["row_gather"] > 0,
+              f"row_gather launched on the SGD {method} path")
+        hist = res.rmse_history
+        ev = [e for e in read_events(run_dir) if "rmse_test" in e]
+        s_epoch = float(np.median([e["epoch_s"] for e in ev[1:]]))
+        log(f"SGD {method} through train(): {len(hist)} epochs, held-out "
+            f"rmse {hist[0]:.6f} -> {hist[-1]:.6f} (train "
+            f"{ev[0]['rmse_train']:.6f} -> {ev[-1]['rmse_train']:.6f}), "
+            f"median s/epoch (epochs 2-20) {s_epoch:.4f}, first epoch "
+            f"{ev[0]['epoch_s']:.4f}; row_gather launches "
+            f"{launches['row_gather']}; on {smi}")
+        check(len(hist) == p.epochs, f"SGD {method}: every epoch ran")
+        check(hist[-1] < hist[0], f"SGD {method}: held-out rmse falls")
+        check_trash_rows(res.state, f"SGD {method}")
+        check(float(res.state.mu) == np.float32(ds.mu), "SGD: mu = ds.mu")
+        # resume: 10 epochs, then the rest from the checkpoint
+        half = cfg.replace(sgd=dataclasses.replace(cfg.sgd, epochs=10),
+                           name=cfg.name + "-resumed")
+        train(half, ds)
+        back = train(cfg.replace(name=half.name), ds,
+                     resume=os.path.join(tmp, half.name, "ckpt"))
+        same = states_equal(back.state, res.state)
+        log(f"SGD {method}: resumed from the epoch-10 checkpoint, final "
+            f"factors bit-equal to the uninterrupted run (itself a second "
+            f"run from the same seed): {same}; history equal: "
+            f"{back.rmse_history[10:] == hist[10:]}")
+        check(same, f"SGD {method}: resumed run bit-equal")
+        check(len(back.rmse_history) == p.epochs,
+              f"SGD {method}: the history crossed the checkpoint")
+        out[method] = {"launches": launches["row_gather"], "rmse": hist,
+                       "s_epoch": s_epoch, "state": res.state}
+
+    band = abs(out["stream"]["rmse"][-1] - out["batched"]["rmse"][-1])
+    log(f"SGD stream vs batched, final held-out rmse: |diff| {band:.4f} "
+        f"(band {STREAM_BAND})")
+    check(band <= STREAM_BAND, "stream SGD ends within the band of batched")
+
+    # ---- one epoch twice from one state, and where its time goes --------
+    sdata, _ = prepare_stream_sgd(ds.train_u, ds.train_i, ds.train_r,
+                                  p.batch_size, n_users, n_items,
+                                  seed=cfg.seed, grad_mode="capped",
+                                  device=dev)
+    trainers = {
+        "batched": (BiasedSGD(p.lam, p.lr, p.lr_decay, p.batch_size,
+                              seed=cfg.seed, grad_mode=p.grad_mode), data),
+        "stream": (StreamSGD(p.lam, p.lr, p.lr_decay, seed=cfg.seed,
+                             grad_mode="capped"), sdata)}
+    for method, (trainer, d) in trainers.items():
+        a = trainer.epoch(start(), d, 1)
+        b = trainer.epoch(start(), d, 1)
+        sync()
+        check(states_equal(a, b), f"SGD {method}: one epoch twice bit-equal")
+        st = start()
+        out[method]["profile"] = epoch_profile(
+            lambda: trainer.epoch(st, d, 2), f"one SGD {method} epoch", smi)
+    log(f"SGD: one epoch of each trainer twice from one state: U, V, bu, bi "
+        f"bit-equal; stream: {sdata.ul.shape[0]} batches, tile {sdata.tile}")
+    out["stream_data"] = sdata
+    out["batched_data"] = data
+    return out
+
+
+def phase_gather_narrow(dev, sgd: dict, bpr_data, bpr_rank: int,
+                        smi: str) -> dict:
+    """row_gather at the row widths the SGD and BPR epochs give it (64-,
+    68- and 136-byte rows: its 16-, 4- and 8-byte paths), bit-equal to
+    table[idx], beside table[idx] and the bound, three ways:
+
+    * cold, on the trainers' own table shapes and first index batches: the
+      calls rotate over enough copies of the inputs that each finds its own
+      evicted from the L2, as the bound (every byte once at the
+      device-memory rate) counts them. This is the figure of the kernels
+      line;
+    * warm, the same calls on one copy: the epochs find these tables (0.4
+      to 19 MB, read every batch) in the L2. At m = 8,192 both are a
+      launch's latency, not the path's bandwidth;
+    * large and cold, 1,048,576 rows from a 480,189-row table of the same
+      width: enough bytes that the time is the path's bandwidth."""
+    from ycnr_tpu_torch.ops.row_gather import (row_gather_cuda,
+                                               row_gather_reference)
+    from ycnr_tpu_torch.tools.probe_gather import cold_sets, graph_ms
+
+    rng = np.random.default_rng(21)
+    sd, bd = sgd["stream_data"], sgd["batched_data"]
+    st = sgd["batched"]["state"]
+    k = st.rank
+    B = sd.ul.shape[1]
+    lo = int(sd.u_lo[1]) | 1  # an odd start: the tile's base is 4-byte aligned
+    lo = min(lo, st.n_users + 1 - sd.tile)
+
+    def table(rows, cols):
+        return torch.as_tensor(rng.standard_normal((rows, cols),
+                                                   dtype=np.float32),
+                               device=dev)
+
+    def timed(T, idx):
+        """(bound, cold ms of kernel / plain / table[idx], warm kernel ms)"""
+        row_b = T.shape[1] * T.element_size()
+        nbytes = (idx.numel() * (idx.element_size() + row_b)
+                  + int(torch.unique(idx).numel()) * row_b)
+        bnd = bound_ms(nbytes, 0, PEAK_F32)
+        sets = cold_sets((T, idx), nbytes, 512)
+        iters = max(GATHER_ITERS, len(sets))
+
+        def cold_ms(fn):
+            return graph_ms(fn, iters, sets=sets)
+
+        plain = cold_ms(row_gather_reference)
+        ms = cold_ms(row_gather_cuda)
+        lib = cold_ms(lambda t, i: t[i])
+        ms = min(ms, cold_ms(row_gather_cuda))
+        warm = graph_ms(lambda: row_gather_cuda(T, idx), GATHER_ITERS)
+        return bnd, ms, plain, lib, warm, len(sets)
+
+    Ue = table(st.n_users + 1, k + 1)
+    n_bu, n_bi = bpr_data.wu.shape[0], bpr_data.wi.shape[0]
+    Bb = 65_536
+    big_n, big_m = GATHER_TABLES[1], 1 << 20
+    big_idx = torch.as_tensor(rng.integers(0, big_n, big_m), device=dev)
+    cases = [
+        ("w64", "batched SGD U[ub]", table(st.n_users + 1, k), bd.u[:B]),
+        ("w64", "batched SGD V[ib]", table(st.n_items + 1, k), bd.i[:B]),
+        ("w68", f"stream SGD tile Ue[{lo}:{lo}+{sd.tile}][ulb]",
+         Ue[lo:lo + sd.tile], sd.ul[1]),
+        ("w68", "stream SGD Ve[ibb]", table(st.n_items + 1, k + 1),
+         sd.ib[1]),
+        ("w136", "BPR Uf[ub]", table(n_bu, bpr_rank + 2), bpr_data.u[:Bb]),
+        ("w136", "BPR Vf[ib]", table(n_bi, bpr_rank + 2), bpr_data.i[:Bb]),
+        ("w64-large", "large", table(big_n, k), big_idx),
+        ("w68-large", "large, from an odd row",
+         table(big_n + 1, k + 1)[1:], big_idx),
+        ("w136-large", "large", table(big_n, bpr_rank + 2), big_idx),
+    ]
+    out = {}
+    for key, what, T, idx in cases:
+        idx = idx.contiguous()
+        got = row_gather_cuda(T, idx)
+        want = row_gather_reference(T, idx)
+        sync()
+        row_b = T.shape[1] * T.element_size()
+        check(row_b == int(key.split("-")[0][1:]),
+              f"{what}: rows of {row_b} bytes")
+        check(torch.equal(got, want), f"row_gather {what}: bit-equal to "
+              f"table[idx]")
+        del got, want
+        bnd, ms, plain_ms, lib_ms, warm_ms, n_sets = timed(T, idx)
+        align = 16 if (T.data_ptr() | row_b) % 16 == 0 else (
+            8 if (T.data_ptr() | row_b) % 8 == 0 else 4)
+        log(f"gather {what}: [{T.shape[0]}, {T.shape[1]}] f32 rows of "
+            f"{row_b} bytes ({align}-byte path), m={idx.numel()} int64: "
+            f"bit-equal; cold L2 ({n_sets} copies in turn): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, table[idx] "
+            f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[0] / ms:.3f} of "
+            f"the bound); warm (one copy, in the L2 where it fits): kernel "
+            f"{warm_ms:.4f} ms; on {smi}")
+        # per width, the larger table (the user side) is the one reported
+        out.setdefault(key, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bnd[0], bound_by=bnd[1],
+                                 warm_ms=warm_ms, max_abs_err=0.0, what=what))
+    return out
+
+
+def phase_bpr(dev, ds1m, ds20m, tmp: str, smi: str) -> dict:
+    """BPR at the ``ml20m-bpr`` preset's width through ``train()``, after
+    one epoch of each shuffle mode against the oracle on the ML-1M-shaped
+    set."""
+    import dataclasses
+
+    from ycnr_tpu_torch.config import get_preset
+    from ycnr_tpu_torch.eval.ranking import hit_rate_at_n
+    from ycnr_tpu_torch.models.base import (init_state, to_numpy,
+                                            zero_cold_entities)
+    from ycnr_tpu_torch.models.bpr import (BPRTrainer, bpr_epoch,
+                                           bpr_epoch_batches,
+                                           prepare_bpr_data)
+    from ycnr_tpu_torch.oracle import bpr_epoch_batched
+    from ycnr_tpu_torch.train.loop import train
+
+    cfg = get_preset("ml20m-bpr")
+    # measure_serving through the fused scorer: train() ends with one
+    # timed top-10 pass for every user through K2
+    cfg = cfg.replace(bpr=dataclasses.replace(cfg.bpr, epochs=2),
+                      out_dir=tmp, checkpoint_every=0, measure_serving=True,
+                      scorer="fused")
+    p = cfg.bpr
+    B = p.batch_size
+
+    # ---- the oracle, ML-1M shape, whole batches (it knows no padding) ---
+    n = (len(ds1m.train_u) // B) * B
+    u, i = ds1m.train_u[:n], ds1m.train_i[:n]
+    rng = np.random.default_rng(5)
+    negs = rng.integers(0, ds1m.n_items, n).astype(np.int32)
+    for shuffle in ("rows", "batches"):
+        data = prepare_bpr_data(
+            u, i, B, ds1m.n_users, ds1m.n_items, device=dev,
+            shuffle_rows_seed=0 if shuffle == "batches" else None)
+        st0 = init_state(ds1m.n_users, ds1m.n_items, p.rank, seed=0,
+                         device=dev)
+        U0, V0, bu0, bi0, _ = to_numpy(st0)
+        reset_launches()
+        if shuffle == "rows":
+            perm = rng.permutation(n)
+            got = bpr_epoch(st0, data, perm, negs, p.lam, p.lr, B,
+                            p.grad_mode)
+            pu, pi = u[perm], i[perm]
+        else:
+            border = rng.permutation(n // B)
+            got = bpr_epoch_batches(st0, data, border, negs, p.lam, p.lr, B,
+                                    p.grad_mode)
+            rows = (border[:, None] * B + np.arange(B)[None, :]).reshape(-1)
+            pu = data.u.cpu().numpy()[rows]
+            pi = data.i.cpu().numpy()[rows]
+        sync()
+        check(read_launches()["row_gather"] == 3 * (n // B),
+              "row_gather launched three times a batch in the BPR epoch")
+        t0 = time.time()
+        oU, oV, obi = bpr_epoch_batched(U0[:-1], V0[:-1], bi0[:-1], pu, pi,
+                                        negs, p.lam, p.lr, B, p.grad_mode)
+        gU, gV, gbu, gbi, _ = to_numpy(got)
+        err = max(float(np.abs(gU[:-1] - oU).max()),
+                  float(np.abs(gV[:-1] - oV).max()),
+                  float(np.abs(gbi[:-1] - obi).max()))
+        log(f"BPR epoch (shuffle={shuffle!r}, {p.grad_mode}, {n // B} "
+            f"batches of {B}, rank {p.rank}) against the float64 oracle "
+            f"({time.time() - t0:.1f} s on the host): max |diff| {err:.3e} "
+            f"(limit {ORACLE_ATOL})")
+        check(err <= ORACLE_ATOL, f"BPR {shuffle} epoch within ORACLE_ATOL")
+        check(np.array_equal(gbu, bu0), "BPR leaves bu alone")
+        check_trash_rows(got, f"BPR {shuffle} epoch")
+        del data, got, st0
+
+    # ---- ml20m-bpr through train() ---------------------------------------
+    def start():
+        return zero_cold_entities(
+            init_state(ds20m.n_users, ds20m.n_items, p.rank, seed=cfg.seed,
+                       device=dev), ds20m.train_u, ds20m.train_i)
+
+    def hit(state):
+        return hit_rate_at_n(state, ds20m.train_u, ds20m.train_i,
+                             ds20m.test_u, ds20m.test_i, n=cfg.topn,
+                             max_users=512)
+
+    st0 = start()
+    hr0 = hit(st0)
+    sync()
+    reset_launches()
+    t0 = time.time()
+    res = train(cfg, ds20m)
+    wall = time.time() - t0
+    launches = read_launches()
+    check(res.state.U.is_cuda, "BPR: trained on the card")
+    check(launches["row_gather"] > 0, "row_gather launched on the BPR path")
+    events = read_events(os.path.join(tmp, cfg.name))
+    ev = [e for e in events if e.get("algo") == "bpr"]
+    ranking = [e for e in events if e.get("event") == "ranking"]
+    hr = [e["hit_rate"] for e in ev]
+    log(f"BPR through train(): {len(ev)} epochs in {wall:.1f} s wall (data "
+        f"preparation, evaluation and the serving measurement included; "
+        f"seconds into the run at each event: "
+        f"{[(e.get('event', 'epoch'), e['t']) for e in events]}), epoch_s "
+        f"{[e['epoch_s'] for e in ev]}, hit-rate@{cfg.topn} {hr0:.4f} at "
+        f"the start -> {hr}; row_gather launches {launches['row_gather']}; "
+        f"ranking {ranking[-1] if ranking else None}; on {smi}")
+    check(len(ev) == p.epochs and len(res.rmse_history) == p.epochs,
+          "BPR: every epoch ran")
+    check(hr[-1] > hr0, "BPR: hit-rate after training above the start's")
+    check(abs((1 - res.rmse_history[-1]) - hr[-1]) < 1e-4,
+          "BPR: the history is 1 - hit rate")
+    check(len(ranking) == 1 and all(
+        np.isfinite(v) for k, v in ranking[0].items() if k != "event"),
+        "BPR: one final ranking event with finite values")
+    check(torch.equal(res.state.bu, st0.bu) and float(res.state.mu) == 0.0,
+          "BPR leaves bu and mu alone")
+    check_trash_rows(res.state, "BPR")
+    serving = [e for e in events if e.get("event") == "serving"]
+    log(f"train(measure_serving=True, scorer='fused'): {serving}; K2 "
+        f"launches {launches['fused_scores']}; on {smi}")
+    check(len(serving) == 1 and serving[0]["scorer"] == "fused"
+          and serving[0]["users"] == int(np.unique(ds20m.train_u).size)
+          and serving[0]["recs_per_s"] > 0,
+          "train() timed its serving pass through the fused scorer")
+    check(launches["fused_scores"] > 0,
+          "K2 launched on train()'s serving measurement")
+
+    data = prepare_bpr_data(ds20m.train_u, ds20m.train_i, B, ds20m.n_users,
+                            ds20m.n_items, shuffle_rows_seed=0, device=dev)
+    trainer = BPRTrainer(p.lam, p.lr, p.lr_decay, B, seed=cfg.seed,
+                         grad_mode=p.grad_mode, shuffle=p.shuffle)
+    a = trainer.epoch(start(), data, 1)
+    b = trainer.epoch(start(), data, 1)
+    sync()
+    same = states_equal(a, b)
+    log(f"BPR: one epoch twice from one state: U, V, bu, bi bit-equal: "
+        f"{same}")
+    check(same, "BPR: one epoch twice bit-equal")
+    del a, b
+    prof = epoch_profile(lambda: trainer.epoch(st0, data, 2),
+                         "one BPR epoch", smi)
+    return {"launches": launches["row_gather"],
+            "k2_launches": launches["fused_scores"], "hit_rate": [hr0] + hr,
+            "epoch_s": [e["epoch_s"] for e in ev], "profile": prof,
+            "data": data, "rank": p.rank}
+
+
+def phase_online(state, tu, ti, tr, smi: str) -> dict:
+    """The in-process serving layer's online calls on the trained
+    main-path state (a copy of U: add_ratings writes rows in place)."""
+    from ycnr_tpu_torch.eval.recommend import top_popular
+    from ycnr_tpu_torch.serve.engine import Recommender
+
+    lam = MAIN["lam"]
+    state = state._replace(U=state.U.clone())
+    rec = Recommender(state, tu, ti, train_r=tr)
+    rng = np.random.default_rng(9)
+    users = rng.choice(np.unique(tu), 8, replace=False)
+    V64 = state.V.double().cpu().numpy()
+    bi64 = state.bi.double().cpu().numpy()
+    worst = 0.0
+    sync()
+    reset_launches()
+    t0 = time.time()
+    for uid in users:
+        uid = int(uid)
+        new = rec.recommend(uid, 10)[:3]
+        before = state.U[uid].clone()
+        rec.add_ratings(uid, new, [5.0, 4.5, 4.0], lam=lam)
+        items, ratings = rec._user_items_ratings(uid)
+        F = V64[items]
+        resid = ratings.astype(np.float64) - (float(state.mu) + bi64[items])
+        A = F.T @ F + lam * len(items) * np.eye(F.shape[1])
+        want = np.linalg.solve(A, F.T @ resid)
+        row = state.U[uid].double().cpu().numpy()
+        worst = max(worst, float(np.abs(row - want).max()
+                                 / np.abs(want).max()))
+        check(not torch.equal(before, state.U[uid]),
+              f"add_ratings: user {uid}'s row was written in place")
+        served = rec.recommend(uid, 10)
+        check(len(served) == 10 and not set(new.tolist())
+              & set(served.tolist()),
+              f"add_ratings: user {uid} is served no newly rated item")
+    sync()
+    add_s = (time.time() - t0) / len(users)
+    launches = read_launches()
+    log(f"add_ratings for {len(users)} users ({1e3 * add_s:.1f} ms each, "
+        f"the two recommend() calls included): rows within {worst:.3e} "
+        f"relative of a float64 solve (limit {ONLINE_RTOL}); kernel "
+        f"launches {launches}")
+    check(worst <= ONLINE_RTOL, "add_ratings rows within ONLINE_RTOL")
+    check(launches["spd_solve"] >= len(users), "K1 launched on add_ratings")
+    check(launches["row_gather"] >= len(users),
+          "row_gather launched on add_ratings")
+    check(rec.pending_count() == 3 * len(users), "pending log holds them")
+    t0 = time.time()
+    rec.compact()
+    log(f"compact(): {time.time() - t0:.2f} s on the host for "
+        f"{len(rec.train_u):,} ratings")
+    check(rec.pending_count() == 0 and len(rec.train_u) == len(tu)
+          + 3 * len(users), "compact folded the pending log into the base")
+    uid = int(users[0])
+    check(len(set(rec.recommend(uid, 10).tolist())
+              & set(rec._user_items(uid).tolist())) == 0,
+          "after compact: no rated item served")
+    pop = rec.popular(10)
+    check(np.array_equal(pop, top_popular(rec.train_i, state.n_items, 10))
+          and len(pop) == 10, "popular(10) is the top of the item counts")
+
+    # similar / precompute_similar against a float64 cosine on the host
+    reset_launches()
+    t0 = time.time()
+    n_sim = rec.precompute_similar(10, "cosine", chunk=1024)
+    sync()
+    sim_s = time.time() - t0
+    live = np.flatnonzero((V64[:-1] != 0).any(1))
+    check(n_sim == len(live), "precompute_similar cached every live item")
+    check(read_launches()["row_gather"] == -(-len(live) // 1024),
+          "row_gather launched once a chunk in precompute_similar")
+    Vn = V64[:-1] / np.maximum(np.linalg.norm(V64[:-1], axis=1),
+                               1e-12)[:, None]
+    chunk = live[:1024]
+    cos = Vn[chunk] @ Vn.T
+    cos[:, np.setdiff1d(np.arange(state.n_items), live)] = -np.inf
+    cos[np.arange(len(chunk)), chunk] = -np.inf
+    tenth = -np.partition(-cos, 9, axis=1)[:, 9]
+    bad = 0
+    for j, iid in enumerate(chunk):
+        got = rec.cache.get(("sim", int(iid), 10, "cosine"))
+        ok = (got is not None and len(got) == 10 and int(iid) not in got
+              and bool((cos[j, got] >= tenth[j] - SIM_TOL).all())
+              and bool((np.diff(cos[j, got]) <= SIM_TOL).all()))
+        bad += not ok
+    one = rec.similar(int(chunk[0]), 10)
+    log(f"precompute_similar: {n_sim:,} items in {sim_s:.2f} s; first "
+        f"{len(chunk)} held to a float64 cosine on the host (every pick "
+        f"within {SIM_TOL} of the true 10th, in order): {bad} wrong")
+    check(bad == 0, "similar lists equal the float64 cosine's up to ties")
+    check(np.array_equal(one, rec.cache.get(("sim", int(chunk[0]), 10,
+                                             "cosine"))),
+          "similar() serves the cached list")
+    seven = rec.similar(int(chunk[1]), 7)  # not cached: computed here
+    seventh = -np.partition(-cos[1], 6)[6]
+    check(len(seven) == 7 and bool((cos[1, seven] >= seventh - SIM_TOL).all())
+          and read_launches()["row_gather"] == -(-len(live) // 1024) + 1,
+          "similar(): the float64 cosine's top 7, through row_gather")
+
+    reset_launches()
+    mine = rng.choice(live, 20, replace=False)
+    cold = rec.recommend_cold(mine, rng.uniform(1, 5, 20), n=10, lam=lam)
+    sync()
+    cl = read_launches()
+    check(len(cold) == 10 and not set(cold.tolist()) & set(mine.tolist()),
+          "recommend_cold: 10 items, none of the user's own")
+    check(cl["spd_solve"] > 0 and cl["row_gather"] > 0,
+          "K1 and row_gather launched on recommend_cold")
+    log(f"recommend_cold: 10 items from 20 ratings, none of them served; "
+        f"launches {cl}; on {smi}")
+    return {"add": launches, "cold": cl}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -869,7 +1428,7 @@ def run(dev):
         f"{PR3_S_EPOCH}, PR 2: {PR2_S_EPOCH}, PR 1: {PR1_S_EPOCH} on the "
         f"same card type) on "
         f"{smi}; epoch 3's device time is {dev_ms / 1e3 / wall:.3f} of that "
-        f"wall (device idle {max(0.0, 1 - dev_ms / 1e3 / wall):.3f})")
+        f"wall (device idle {1 - dev_ms / 1e3 / wall:.3f})")
     for ep, (got, want) in enumerate(zip(rmse, PR2_RMSE)):
         log(f"epoch {ep + 1} rmse {got:.6f}: |diff| to PR 2's trajectory "
             f"{abs(got - want):.2e}")
@@ -965,6 +1524,32 @@ def run(dev):
     fold_launches = phase_fold_in(state, tu, ti, tr)
     sync()
 
+    # ---- online serving on the trained state -----------------------------
+    online = phase_online(state, tu, ti, tr, smi)
+    del rec
+    sync()
+
+    # ---- SGD (ml1m-sgd) and BPR (ml20m-bpr) through train() --------------
+    from ycnr_tpu_torch.data.dataset import Dataset, load_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        ds1m = load_dataset(ml1m_sgd_config("batched", tmp).data,
+                            rank_hint=16)
+        log(f"data: ML-1M shape, {ds1m.n_users} x {ds1m.n_items}, "
+            f"{len(ds1m.train_r):,} train / {len(ds1m.test_r):,} held-out "
+            f"ratings in {time.time() - t0:.1f} s")
+        sgd = phase_sgd(dev, ds1m, tmp, smi)
+        sync()
+        ds20m = Dataset(n_users=n_users, n_items=n_items, train_u=tu,
+                        train_i=ti, train_r=tr, test_u=su, test_i=si,
+                        test_r=sr, mu=float(tr.mean()), chunk_len=32,
+                        rank_hint=32)
+        bpr = phase_bpr(dev, ds1m, ds20m, tmp, smi)
+        sync()
+    narrow = phase_gather_narrow(dev, sgd, bpr["data"], bpr["rank"], smi)
+    sync()
+
     # ---- the gather probes, reduced --------------------------------------
     from ycnr_tpu_torch.tools import bench_gather, probe_gather
 
@@ -990,7 +1575,7 @@ def run(dev):
         {"name": "fused_scores", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/fused_topn.cu",
          "replaces": "ycnr_tpu/ops/pallas_topn.py:100",
-         "launches": launches["fused_scores"],
+         "launches": launches["fused_scores"] + bpr["k2_launches"],
          "max_abs_err": max(k2["bf16"]["max_abs_err"],
                             k2["f32"]["max_abs_err"]),
          "ms": k2["bf16"]["ms"], "plain_ms": k2["bf16"]["plain_ms"],
@@ -1002,10 +1587,27 @@ def run(dev):
                      "tools/bench_pallas_gather.py:106, "
                      "tools/bench_pallas_gather.py:184",
          "launches": blocked_launches["row_gather"]
-         + fold_launches["row_gather"],
+         + fold_launches["row_gather"] + online["add"]["row_gather"]
+         + online["cold"]["row_gather"],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]},
+    ] + [
+        # the same kernel at the row widths of the SGD and BPR epochs, with
+        # the launches of that trainer's run through train()
+        {"name": f"row_gather ({what})", "route": "cuda",
+         "source": "ycnr_tpu_torch/csrc/row_gather.cu",
+         "replaces": "tools/probe_gather.py:94",
+         "launches": n_launch, "max_abs_err": narrow[key]["max_abs_err"],
+         "ms": narrow[key]["ms"], "plain_ms": narrow[key]["plain_ms"],
+         "bound_ms": narrow[key]["bound_ms"],
+         "bound_by": narrow[key]["bound_by"],
+         "library_ms": narrow[key]["library_ms"]}
+        for key, what, n_launch in (
+            ("w64", "64-byte rows, batched SGD", sgd["batched"]["launches"]),
+            ("w68", "68-byte rows, stream SGD", sgd["stream"]["launches"]),
+            ("w136", "136-byte rows, BPR", bpr["launches"]))
+    ] + [
         {"name": "take_along_rows", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/row_gather.cu",
          "replaces": "tools/probe_gather.py:170",

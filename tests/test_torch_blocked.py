@@ -53,13 +53,13 @@ def _states(p):
 
 def _block(lay, b, dt_j, dt_t):
     jb = jgram.BlockData(*(x[b] for x in jbase.device_layout(lay, dt_j)))
-    tb = tgram.BlockData(*(x[b] for x in device_layout(lay, dt_t)))
+    tb = tgram.BlockData(*(x[b] for x in device_layout(lay, dt_t, "cpu")))
     return jb, tb
 
 
 def test_device_layout_matches_jax(problem):
     jl = jbase.device_layout(problem["ul"], jnp.float32)
-    tl = device_layout(problem["ul"], torch.float32)
+    tl = device_layout(problem["ul"], torch.float32, "cpu")
     for a, b in zip(jl, tl):
         assert str(b.dtype).split(".")[-1] == str(a.dtype)
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
@@ -148,8 +148,8 @@ def test_epochs_match(problem, algo):
     js, ts = _states(problem)
     jul = jbase.device_layout(problem["ul"], jnp.float64)
     jil = jbase.device_layout(problem["il"], jnp.float64)
-    tul = device_layout(problem["ul"], torch.float64)
-    til = device_layout(problem["il"], torch.float64)
+    tul = device_layout(problem["ul"], torch.float64, "cpu")
+    til = device_layout(problem["il"], torch.float64, "cpu")
     if algo == "als":
         jm, tm = jals.ALSWR(LAM), ALSWR(LAM)
     else:

@@ -68,7 +68,7 @@ def test_phase_matches_f64(problem, alpha, side):
     Ej = jbp.phase_bucketed(jE, jF, jbp.device_bucketed(lay, jnp.float64),
                             LAM, alpha, base_j)
     Et = tbp.phase_bucketed(tE.clone(), tF, tbp.device_bucketed(
-        lay, torch.float64), LAM, alpha, base_t)
+        lay, torch.float64, "cpu"), LAM, alpha, base_t)
     np.testing.assert_allclose(Et.numpy(), np.asarray(Ej), rtol=1e-9,
                                atol=1e-9)
     # the phase keeps the trash row and the cold rows exactly zero
@@ -82,8 +82,8 @@ def test_epochs_match_f64(problem, algo):
     ts = tbase.zero_cold_entities(ts, *_active(problem))
     jul = jbp.device_bucketed(problem["ul"], jnp.float64)
     jil = jbp.device_bucketed(problem["il"], jnp.float64)
-    tul = tbp.device_bucketed(problem["ul"], torch.float64)
-    til = tbp.device_bucketed(problem["il"], torch.float64)
+    tul = tbp.device_bucketed(problem["ul"], torch.float64, "cpu")
+    til = tbp.device_bucketed(problem["il"], torch.float64, "cpu")
     jt = _jtest(problem["test"], jnp.float64)
     tt = _ttest(problem["test"], torch.float64)
     if algo == "als":
@@ -133,8 +133,8 @@ def test_bf16_gather_rmse_matches_jax(problem):
     js, ts = _states(jnp.float32, torch.float32)
     jul = jbp.device_bucketed(problem["ul"], jnp.float32)
     jil = jbp.device_bucketed(problem["il"], jnp.float32)
-    tul = tbp.device_bucketed(problem["ul"], torch.float32)
-    til = tbp.device_bucketed(problem["il"], torch.float32)
+    tul = tbp.device_bucketed(problem["ul"], torch.float32, "cpu")
+    til = tbp.device_bucketed(problem["il"], torch.float32, "cpu")
     _, (rj, _) = jbp.als_epochs_bucketed(
         js, jul, jil, LAM, 2, _jtest(problem["test"], jnp.float32),
         gather_bf16=True)
@@ -150,8 +150,8 @@ def test_bf16_rating_copy_is_the_jax_rounding(problem):
     default the ratings stay in the layout's dtype."""
     for lay in (problem["ul"], problem["il"]):
         for g, dg, df in zip(lay, tbp.device_bucketed(
-                lay, torch.float32, rating_dtype=torch.bfloat16),
-                tbp.device_bucketed(lay, torch.float32)):
+                lay, torch.float32, "cpu", rating_dtype=torch.bfloat16),
+                tbp.device_bucketed(lay, torch.float32, "cpu")):
             want = np.asarray(jnp.asarray(g.rating).astype(jnp.bfloat16))
             assert np.array_equal(dg.rating.view(torch.int16).numpy(),
                                   want.view(np.int16))
@@ -164,7 +164,7 @@ def test_phase_refuses_ratings_of_another_dtype(problem):
     so a bf16-rating layout (the fused branch's) raises instead of
     training on rounded ratings."""
     _, ts = _states(jnp.float32, torch.float32)
-    lay = tbp.device_bucketed(problem["ul"], torch.float32,
+    lay = tbp.device_bucketed(problem["ul"], torch.float32, "cpu",
                               rating_dtype=torch.bfloat16)
     for gather_bf16 in (False, True):
         with pytest.raises(ValueError, match="ratings"):
@@ -195,8 +195,8 @@ def test_fused_branch_equals_bucket_solve_rows(problem):
     _, ts = _states(jnp.float32, torch.float32)
     for lay, F in ((problem["ul"], ts.V), (problem["il"], ts.U)):
         F_g = F.to(torch.bfloat16)
-        for g, g16 in zip(tbp.device_bucketed(lay, torch.float32),
-                          tbp.device_bucketed(lay, torch.float32,
+        for g, g16 in zip(tbp.device_bucketed(lay, torch.float32, "cpu"),
+                          tbp.device_bucketed(lay, torch.float32, "cpu",
                                               rating_dtype=torch.bfloat16)):
             for j in range(g.other_idx.shape[0]):
                 oi, rr, cnt = g.other_idx[j], g.rating[j], g.entity_cnt[j]

@@ -1,7 +1,9 @@
 """The port's kernels on the card against their plain versions: K1 (a
 float64 solve), K2 (its bound, a float64 sum and its exact invariants),
-the row gather and take-along gather (bit equality) and the fused
-gather -> Gram with and without the ridge (its bound, and a float64 sum).
+the row gather and take-along gather (bit equality, the narrow rows of the
+SGD and BPR epochs included), the fused gather -> Gram with and without the
+ridge (its bound, and a float64 sum), and the fixed order of the trainers'
+scatter-adds (one SGD, stream-SGD and BPR epoch twice: the same bits).
 
 Needs a CUDA device: every test skips without one. On a GPU machine, which
 has no JAX, run them without the suite's JAX conftest:
@@ -318,3 +320,151 @@ def test_fused_gram_refuses_what_it_does_not_take(dev):
         fg.fused_gram(table, idx, rat)  # f32 table
     with pytest.raises(ValueError):
         fg.fused_gram(torch.zeros(10, 129, device=dev).bfloat16(), idx, rat)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("w", [16, 17, 33, 34])
+def test_row_gather_narrow_rows_of_a_tile_are_bit_equal(dev, w, offset):
+    """The SGD and BPR tables: f32 rows of 64, 68, 132 and 136 bytes, and a
+    slice view starting at any row (the stream epoch's tile), so the base
+    address is 16-, 8- or 4-byte aligned: every vector width of the
+    kernel."""
+    rng = np.random.default_rng(w + offset)
+    full = torch.as_tensor(rng.normal(size=(4001, w)), dtype=torch.float32,
+                           device=dev)
+    tile = full[offset:offset + 3000]
+    idx = torch.as_tensor(rng.integers(0, 3000, 8192), device=dev)
+    before = rg.launches
+    got = rg.row_gather(tile, idx)
+    torch.cuda.synchronize()
+    assert rg.launches == before + 1
+    assert torch.equal(got, tile[idx])
+
+
+def _implicit(nu, ni, nnz, seed):
+    rng = np.random.default_rng(seed)
+    # Zipf-like users and items: many duplicates within a batch
+    u = np.minimum(rng.zipf(1.3, nnz) - 1, nu - 1).astype(np.int32)
+    i = np.minimum(rng.zipf(1.3, nnz) - 1, ni - 1).astype(np.int32)
+    r = rng.uniform(1, 5, nnz).astype(np.float32)
+    return u, i, r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scatter_add_is_deterministic_and_right(dev, dtype):
+    """``models.base.scatter_add_`` on the card: duplicates accumulate (as
+    ``np.add.at``), and ten runs give the same bits, which ``index_add_``
+    with its atomics does not promise."""
+    from ycnr_tpu_torch.models.base import scatter_add_
+
+    rng = np.random.default_rng(0)
+    idx = np.minimum(rng.zipf(1.2, 65_536) - 1, 999)
+    delta = rng.normal(size=(65_536, 17))
+    want = np.zeros((1001, 17))
+    np.add.at(want, idx, delta)
+    ti = torch.as_tensor(idx, device=dev)
+    td = torch.as_tensor(delta, dtype=dtype, device=dev)
+    runs = [scatter_add_(torch.zeros(1001, 17, dtype=dtype, device=dev), ti,
+                         td) for _ in range(10)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    tol = 1e-9 if dtype == torch.float64 else 2e-3
+    np.testing.assert_allclose(runs[0].cpu().numpy(), want, atol=tol)
+    assert not bool(runs[0][1000].any())
+
+
+@pytest.mark.parametrize("trainer", ["sgd-sum", "sgd-mean", "stream", "bpr-rows",
+                                     "bpr-batches"])
+def test_one_epoch_twice_gives_the_same_bits(dev, trainer):
+    """Same seed => bitwise same factors, on the card, with hot entities
+    that repeat within every batch; the result also agrees with the same
+    epoch on the CPU (plain gathers, in-order adds) to f32 rounding."""
+    from ycnr_tpu_torch.models import base, bpr, sgd, sgd_stream
+
+    nu, ni, k, B = 700, 300, 16, 2048
+    u, i, r = _implicit(nu, ni, 30_000, 3)
+
+    def epoch(device):
+        st = base.init_state(nu, ni, k, seed=1, mu=3.0, device=device)
+        if trainer.startswith("sgd"):
+            d = sgd.prepare_sgd_data(u, i, r, B, nu, ni, device=device)
+            perm = np.random.default_rng(5).permutation(d.u.shape[0])
+            # "sum" adds a hot user's ~500 terms a batch: a small step
+            lr = 2e-4 if trainer == "sgd-sum" else 0.01
+            return sgd.sgd_epoch(st, d, perm, 0.02, lr, B,
+                                 trainer.split("-")[1])
+        if trainer == "stream":
+            d, _ = sgd_stream.prepare_stream_sgd(u, i, r, B, nu, ni, seed=2,
+                                                 device=device)
+            order = np.random.default_rng(5).permutation(d.ul.shape[0])
+            return sgd_stream.sgd_stream_epoch(
+                st, d.ul, d.ib, d.rb, d.wu, d.wi, d.u_lo, order, 0.02, 0.01,
+                d.tile)
+        batches = trainer == "bpr-batches"
+        d = bpr.prepare_bpr_data(u, i, B, nu, ni, device=device,
+                                 shuffle_rows_seed=0 if batches else None)
+        n_pad = d.u.shape[0]
+        rng = np.random.default_rng(5)
+        negs = rng.integers(0, ni, n_pad)
+        if batches:
+            return bpr.bpr_epoch_batches(st, d, rng.permutation(n_pad // B),
+                                         negs, 0.01, 0.05, B, "emean")
+        return bpr.bpr_epoch(st, d, rng.permutation(n_pad), negs, 0.01,
+                             0.05, B, "emean")
+
+    before = rg.launches
+    a, b = epoch(dev), epoch(dev)
+    torch.cuda.synchronize()
+    assert rg.launches > before  # the gathers went through the kernel
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    for x, y in zip(a, epoch("cpu")):
+        assert bool(torch.isfinite(x).all())
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    for x in a[:4]:
+        assert not bool(x[-1].any())  # trash rows stay zero
+
+
+def test_serving_asked_for_k2_runs_k2_or_raises(dev):
+    """On the card ``recommend_all`` and ``train()``'s serving measurement
+    never give way to the exact scorer: a catalog too small for the fused
+    select raises, a large enough one launches K2 and says so."""
+    from ycnr_tpu_torch.config import ALSConfig, DataConfig, RunConfig
+    from ycnr_tpu_torch.data.dataset import load_dataset
+    from ycnr_tpu_torch.eval.recommend import recommend_all
+    from ycnr_tpu_torch.models.base import init_state
+    from ycnr_tpu_torch.train.loop import _log_serving_metric
+    from ycnr_tpu_torch.train.metrics import MetricsLogger
+
+    class Events(MetricsLogger):
+        def __init__(self):
+            super().__init__(None)
+            self.events = []
+
+        def log(self, **kw):
+            self.events.append(kw)
+
+    for n_items, fused in ((120, False), (1400, True)):
+        cfg = RunConfig(name="t", algorithm="als", scorer="fused",
+                        measure_serving=True, out_dir="",
+                        data=DataConfig(n_users=200, n_items=n_items,
+                                        n_ratings=4000, true_rank=4, seed=0),
+                        als=ALSConfig(rank=8, epochs=1))
+        ds = load_dataset(cfg.data, rank_hint=8)
+        st = init_state(ds.n_users, ds.n_items, 8, seed=0, device=dev)
+        log = Events()
+        before = ft.launches
+        if not fused:
+            with pytest.raises(ValueError, match="too few"):
+                _log_serving_metric(cfg, ds, st, log)
+            with pytest.raises(ValueError, match="too few"):
+                recommend_all(st, ds.user_layout, 10, method="fused32")
+            assert ft.launches == before and not log.events
+            continue
+        _log_serving_metric(cfg, ds, st, log)
+        torch.cuda.synchronize()
+        assert ft.launches > before
+        assert log.events[-1]["scorer"] == "fused"
+        users, ids, _ = recommend_all(st, ds.user_layout, 10, method="fused")
+        assert ids.shape == (len(np.unique(ds.train_u)), 10)

@@ -74,7 +74,7 @@ def test_exact_scorer_matches_jax_f64(bits):
     tb = trec.bits_tensor(trec.build_rated_bits(lay, 2000), "cpu") \
         if bits else None
     ij, vj = jrec._topn_blocks(js, device_layout(lay, jnp.float64), n, jb)
-    it, vt = trec._topn_blocks(ts, t_device_layout(lay), n, tb)
+    it, vt = trec._topn_blocks(ts, t_device_layout(lay, device="cpu"), n, tb)
     _assert_same_up_to_ties(_per_user(it.numpy()), _per_user(vt.numpy()),
                             _per_user(ij), _per_user(vj), atol=1e-9)
 
@@ -103,7 +103,7 @@ def test_fused_matches_pallas_interpret_and_exact(score_bf16):
     _assert_same_up_to_ties(got_i, got_v, _per_user(ij)[real],
                             _per_user(vj)[real], atol=0)
     # and == the exact scorer (integer scores: exact in bf16)
-    ie, ve = trec._topn_blocks(ts, t_device_layout(lay), n,
+    ie, ve = trec._topn_blocks(ts, t_device_layout(lay, device="cpu"), n,
                                trec.bits_tensor(bits, "cpu"))
     _assert_same_up_to_ties(got_i, got_v, _per_user(ie.numpy())[real],
                             _per_user(ve.numpy())[real], atol=0)
@@ -165,3 +165,22 @@ def test_fused_plain_version_masks_pad_and_trash_columns():
         trec.bits_tensor(bits, "cpu")[0, :16], score_bf16=False)
     assert torch.all(s3.reshape(16, -1)[:, 300:] == tft.NEG_INF)
     assert torch.equal(seg, s3.amax(2))
+
+
+def test_fused_gives_way_to_exact_only_on_the_cpu():
+    """A catalog too small for the two-level select: the exact scorer on
+    CPU factors (as the JAX package), an error where the factors are on
+    the card; a large enough catalog goes through K2's path on either."""
+    assert not tft.fused_supported(120, 10)
+    assert trec.use_fused("fused", 120, 10, torch.device("cpu")) is False
+    for method in ("fused", "fused32"):
+        with pytest.raises(ValueError, match="too few"):
+            trec.use_fused(method, 120, 10, torch.device("cuda", 0))
+        assert trec.use_fused(method, 1400, 10, "cuda")
+        assert trec.use_fused(method, 1400, 10, "cpu")
+    assert trec.use_fused("exact", 1400, 10, "cuda") is False
+    # through recommend_all on the CPU: exact's answer, bit for bit
+    _, ts, lay, _ = _problem(seed=6, n_items=120)
+    for a, b in zip(trec.recommend_all(ts, lay, 20, method="fused"),
+                    trec.recommend_all(ts, lay, 20, method="exact")):
+        np.testing.assert_array_equal(a, b)

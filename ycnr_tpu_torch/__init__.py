@@ -1,8 +1,9 @@
 """ycnr_tpu_torch — the PyTorch/CUDA port of ycnr_tpu for one NVIDIA H100.
 
 Mirrors the JAX package's module paths and function names: ALS-WR and iALS
-on the bucketed and the blocked layouts with held-out RMSE, masked top-n
-serving, fold-in, npz checkpoints. Plain tensor code is PyTorch; every TPU
+on the bucketed and the blocked layouts, biased SGD (batched and stream)
+and BPR, held-out RMSE and the ranking metrics, masked top-n serving with
+online updates, fold-in, npz checkpoints. Plain tensor code is PyTorch; every TPU
 kernel of the JAX package has a hand-written CUDA counterpart for Hopper
 (``csrc/``): K1, the batched SPD solve (``ops/spd_solve.py``); K2, the fused
 masked scorer (``ops/fused_topn.py``); the row gather (``ops/row_gather.py``)

@@ -4,8 +4,8 @@ Frozen dataclasses with one preset per BASELINE.json config (lines 6-12).
 The copy is field for field the JAX package's, so ``asdict`` of either
 gives the same dict and a checkpoint manifest's ``config`` reads the same
 from both packages (``tests/test_torch_host_copies.py`` holds that). Some
-fields name options only the JAX package implements (sharding, SGD, BPR,
-out-of-core); the port's ``train`` refuses them.
+fields name options only the JAX package implements (sharding,
+out-of-core, shm publishing, orbax); the port's ``train`` refuses them.
 """
 
 from __future__ import annotations
@@ -283,6 +283,38 @@ _PRESETS = {
         topn=10,
     ),
 }
+
+
+def config_from_dict(d: dict, base: Optional[RunConfig] = None) -> RunConfig:
+    """Build a RunConfig from a (possibly partial) nested dict — the
+    file-based config entry (reference C14: a config module consumed at
+    startup). ``{"preset": name}`` selects the base; nested keys ("data",
+    "als", "sgd", "ials", "bpr", "mesh") replace fields of the sub-configs;
+    top-level keys replace RunConfig fields. Unknown keys raise."""
+    cfg = base if base is not None else (
+        get_preset(d["preset"]) if "preset" in d else RunConfig())
+    sub = {"data": DataConfig, "als": ALSConfig, "sgd": SGDConfig,
+           "ials": IALSConfig, "bpr": BPRConfig, "mesh": MeshConfig}
+    top = {f.name for f in dataclasses.fields(RunConfig)}
+    kw = {}
+    for k, v in d.items():
+        if k == "preset":
+            continue
+        if k in sub:
+            kw[k] = dataclasses.replace(getattr(cfg, k), **v)
+        elif k in top:
+            kw[k] = v
+        else:
+            raise KeyError(f"unknown config key {k!r}")
+    return cfg.replace(**kw)
+
+
+def load_config(path: str, base: Optional[RunConfig] = None) -> RunConfig:
+    """Load a JSON config file via config_from_dict."""
+    import json
+
+    with open(path) as f:
+        return config_from_dict(json.load(f), base)
 
 
 def get_preset(name: str) -> RunConfig:

@@ -242,4 +242,16 @@ long long ycnr_parse_ratings_ts(const char* path, const char* sep,
   return ycnr_parse_impl(path, sep_mode, cap, users, items, ratings, ts);
 }
 
+// Packed rated-set bitfield for BPR's collision test: bits is a zeroed
+// [(n_users + 1) * W] uint32 array, W = ceil(n_items / 32). One pass over
+// nnz; the caller has checked the id ranges.
+int ycnr_pack_bits(const int32_t* u, const int32_t* i, int64_t nnz,
+                   int64_t W, uint32_t* bits) {
+  for (int64_t k = 0; k < nnz; k++) {
+    const int64_t row = (int64_t)u[k] * W + (i[k] >> 5);
+    bits[row] |= (uint32_t)1 << (i[k] & 31);
+  }
+  return 0;
+}
+
 }  // extern "C"

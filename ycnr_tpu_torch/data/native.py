@@ -1,7 +1,8 @@
 """Build and load the port's native MovieLens parser (``csrc/ingest.cc``).
 
-Host code: a ctypes loader for the three parsing entry points, the port's
-counterpart of ``ycnr_tpu/native/__init__.py``'s parser half. The library
+Host code: a ctypes loader for the three parsing entry points and the
+rated-bits packer, the port's counterpart of
+``ycnr_tpu/native/__init__.py``'s parser half. The library
 is compiled with ``g++`` at first use into ``ycnr_tpu_torch/_build/``
 (listed in ``.gitignore``) under a name keyed by a hash of the source and
 the build command. The compiler writes to a name that holds the process
@@ -53,6 +54,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ycnr_parse_ratings_ts.restype = ctypes.c_longlong
     lib.ycnr_parse_ratings_ts.argtypes = head + [
         ctypes.POINTER(ctypes.c_int64)]
+    lib.ycnr_pack_bits.restype = ctypes.c_int
+    lib.ycnr_pack_bits.argtypes = [i32p, i32p, ctypes.c_int64,
+                                   ctypes.c_int64,
+                                   ctypes.POINTER(ctypes.c_uint32)]
     return lib
 
 
@@ -111,3 +116,26 @@ def parse_ratings_native(path: str, sep: str, want_ts: bool = False):
         return None
     out = (u[:got], i[:got], r[:got])
     return out + (t[:got],) if want_ts else out
+
+
+def pack_bits_native(u, i, n_users: int, n_items: int):
+    """Packed rated-set bitfield [n_users + 1, ceil(n_items / 32)] uint32
+    through the native loop, or ``None`` without the library (the caller
+    then packs with ``np.bitwise_or.at``: the same words, several times
+    slower at 20M rows)."""
+    lib = load_library()
+    if lib is None:
+        return None
+    u = np.ascontiguousarray(u, np.int32)
+    i = np.ascontiguousarray(i, np.int32)
+    # the native loop checks no bounds: raise as the NumPy path would
+    if len(u) and (int(u.min()) < 0 or int(u.max()) > int(n_users)
+                   or int(i.min()) < 0 or int(i.max()) >= int(n_items)):
+        raise IndexError(
+            f"pack_bits: ids out of range (users 0..{n_users}, items "
+            f"0..{int(n_items) - 1})")
+    W = (int(n_items) + 31) // 32
+    bits = np.zeros((int(n_users) + 1, W), np.uint32)
+    lib.ycnr_pack_bits(_ptr(u, ctypes.c_int32), _ptr(i, ctypes.c_int32),
+                       len(u), W, _ptr(bits, ctypes.c_uint32))
+    return bits

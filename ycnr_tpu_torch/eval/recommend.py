@@ -9,8 +9,8 @@ then top-n:
 * ``recommend_users`` serves an explicit user list; rated lists are sliced
   on the host and padded to one rectangle.
 
-``build_rated_bits`` is a NumPy copy of the JAX package's: its module
-imports JAX, which the port does not.
+``build_rated_bits`` and ``top_popular`` are NumPy copies of the JAX
+package's: its module imports JAX, which the port does not.
 """
 
 from __future__ import annotations
@@ -30,6 +30,38 @@ from ycnr_tpu_torch.ops.layout import BlockedCSR
 def overfetch_n(n: int, n_extra: int) -> int:
     """Next power of two >= n + n_extra — the exclusion over-fetch width."""
     return 1 << max(int(n) + int(n_extra) - 1, 0).bit_length()
+
+
+def use_fused(method: str, n_items: int, n: int, device) -> bool:
+    """Whether a serving pass with this ``method`` goes through K2.
+
+    A catalog too small for the two-level select (``fused_supported``) is
+    served by the exact scorer when the factors live on the CPU, as the JAX
+    package does; on the card it raises, so a pass asked for K2 never runs
+    without it."""
+    if method == "exact":
+        return False
+    if fused_supported(n_items, n):
+        return True
+    if torch.device(device).type == "cpu":
+        return False
+    raise ValueError(
+        f"method {method!r}: {n_items} items are too few for the fused "
+        f"top-{n} select; ask for the exact scorer")
+
+
+def top_popular(item_idx, n_items: int, n: int) -> np.ndarray:
+    """Top-n item ids by rating count — the zero-history fallback of
+    ``serve.engine.Recommender.popular``. Host-side: a bincount over nnz
+    beats shipping it to the device. Never-rated items are excluded, so
+    fewer than n ids may return."""
+    counts = np.bincount(np.asarray(item_idx), minlength=int(n_items))
+    n_eff = min(int(n), len(counts))
+    if n_eff <= 0:
+        return np.empty(0, np.int64)
+    top = np.argpartition(-counts, n_eff - 1)[:n_eff]
+    top = top[np.argsort(-counts[top], kind="stable")].astype(np.int64)
+    return top[counts[top] > 0]
 
 
 def build_rated_bits(layout: BlockedCSR, n_items: int) -> np.ndarray:
@@ -177,9 +209,9 @@ def recommend_all(state: MFState, user_layout: BlockedCSR, n: int = 10,
     method: "exact" = f32 (the state's dtype) end to end. "fused" = K2
     (``ops/fused_topn.py``): bf16 inputs, exact segment choice from f32
     maxima, within-segment order and returned scores at bf16 precision.
-    "fused32" keeps the score buffer f32 (bf16 inputs only). Both fused
-    modes fall back to "exact" when the catalog is too small for the
-    two-level select.
+    "fused32" keeps the score buffer f32 (bf16 inputs only). A catalog too
+    small for the two-level select is served "exact" on the CPU and
+    raises on the card (``use_fused``).
     """
     n = min(int(n), state.n_items)  # top-k past the catalog size fails
     if rated_bits is None:
@@ -187,7 +219,7 @@ def recommend_all(state: MFState, user_layout: BlockedCSR, n: int = 10,
     dev = state.U.device
     bits = bits_tensor(rated_bits, dev)
     eids = np.asarray(user_layout.entity_ids)
-    if method != "exact" and fused_supported(state.n_items, n):
+    if use_fused(method, state.n_items, n, dev):
         ids, sc = fused_topn_blocks(
             state, torch.as_tensor(eids, device=dev), bits, n,
             score_bf16=(method != "fused32"))
@@ -235,10 +267,12 @@ def recommend_users(state: MFState, train_u, train_i, user_ids, n: int = 10,
     else:
         su, si = sorted_index if sorted_index is not None else (
             sort_ratings_by_user(train_u, train_i))
-        lists = []
-        for u in user_ids:
-            s, t = np.searchsorted(su, u), np.searchsorted(su, u, "right")
-            lists.append(si[s:t])
+        # probe in the index's own dtype: an id of another dtype makes
+        # NumPy convert the whole sorted index on every probe
+        probe = user_ids.astype(su.dtype)
+        lo = np.searchsorted(su, probe)
+        hi = np.searchsorted(su, probe, "right")
+        lists = [si[a:b] for a, b in zip(lo, hi)]
     width = max(8, max((len(x) for x in lists), default=1), min_width or 0)
     width = 1 << int(np.ceil(np.log2(width)))
     rated = np.full((len(user_ids), width), state.n_items, np.int64)

@@ -74,6 +74,45 @@ def to_numpy(state: MFState):
     return tuple(x.detach().cpu().numpy() for x in state)
 
 
+def grow_state(state: MFState, n_users: int, n_items: int, seed: int = 0,
+               scale: float = 0.1) -> MFState:
+    """Warm-start growth: extend a trained state to a larger catalog.
+
+    New entity rows get the same random-normal init as ``init_state``, from
+    a stream derived from the seed and the old and new dims
+    (``SeedSequence([seed, ou, oi, n_users, n_items])``, as the JAX package
+    draws it, so grown rows are bit-equal); existing rows and biases are
+    carried through float32 as there; the trailing zero rows are kept.
+    Shrinking is refused: entity indices are positional. The result lies
+    on the state's device."""
+    ou, oi, k = state.n_users, state.n_items, state.rank
+    if n_users < ou or n_items < oi:
+        raise ValueError(
+            f"grow_state cannot shrink: checkpoint has {ou} users/{oi} "
+            f"items, dataset has {n_users}/{n_items}")
+    if n_users == ou and n_items == oi:
+        return state
+    rng = np.random.default_rng(
+        np.random.SeedSequence([seed, ou, oi, n_users, n_items]))
+
+    def f32(x):
+        return x.detach().float().cpu().numpy()
+
+    U = np.zeros((n_users + 1, k), np.float64)
+    V = np.zeros((n_items + 1, k), np.float64)
+    U[:ou] = f32(state.U)[:ou]
+    V[:oi] = f32(state.V)[:oi]
+    U[ou:n_users] = rng.normal(0.0, scale, (n_users - ou, k))
+    V[oi:n_items] = rng.normal(0.0, scale, (n_items - oi, k))
+    bu = np.zeros(n_users + 1, np.float64)
+    bi = np.zeros(n_items + 1, np.float64)
+    bu[:ou] = f32(state.bu)[:ou]
+    bi[:oi] = f32(state.bi)[:oi]
+    grown = state_from_numpy(U, V, bu, bi, 0.0, device=state.U.device,
+                             dtype=state.U.dtype)
+    return grown._replace(mu=state.mu)
+
+
 def zero_cold_entities(state: MFState, train_u, train_i) -> MFState:
     """Zero the factor/bias rows of entities with no training ratings, so
     a never-rated entity solves and serves as exactly 0."""
@@ -93,9 +132,11 @@ def zero_cold_entities(state: MFState, train_u, train_i) -> MFState:
 
 
 def device_layout(layout: BlockedCSR, dtype=torch.float32,
-                  device="cpu") -> BlockedCSR:
-    """Move a host ``build_blocked_csr`` layout into tensors on ``device``:
-    indices as they are (int32), ratings and counts cast to ``dtype``."""
+                  device=None) -> BlockedCSR:
+    """Move a host ``build_blocked_csr`` layout into tensors on ``device``
+    (None: the card, ``resolve_device``): indices as they are (int32),
+    ratings and counts cast to ``dtype``."""
+    device = resolve_device(device, "device_layout()")
     def t(x, dt=None):
         return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
 
@@ -106,6 +147,23 @@ def device_layout(layout: BlockedCSR, dtype=torch.float32,
         entity_ids=t(layout.entity_ids),
         entity_cnt=t(layout.entity_cnt, dtype),
     )
+
+
+def scatter_add_(table: torch.Tensor, idx: torch.Tensor,
+                 delta: torch.Tensor) -> torch.Tensor:
+    """``table[idx] += delta`` in place, duplicates accumulating (the JAX
+    package's ``.at[idx].add``), in an order that is the same on every
+    run: the SGD and BPR trainers promise the same factors bit for bit
+    from the same seed. On CUDA ``index_add_`` adds with atomics in no
+    fixed order; ``index_put_(accumulate=True)`` sorts the indices
+    (stably) and adds each row's terms in that order. On the CPU it is
+    the other way round: ``index_put_(accumulate=True)`` adds float32 terms
+    from several threads with atomics (400,000 terms into 50 rows gave
+    other bits in 7 of 8 repeats on 4 threads, torch 2.13), while
+    ``index_add_`` walks the indices in order on one thread."""
+    if table.is_cuda:
+        return table.index_put_((idx,), delta, accumulate=True)
+    return table.index_add_(0, idx, delta)
 
 
 def unpad(state: MFState):

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ycnr_tpu_torch import resolve_device
 from ycnr_tpu_torch.models.base import MFState, rmse_padded
 from ycnr_tpu_torch.ops.fused_gram import fused_gram
 from ycnr_tpu_torch.ops.gram import guarded_batched_solve
@@ -40,15 +41,17 @@ class DeviceBucketGroup(NamedTuple):
 DeviceBucketedCSR = Tuple[DeviceBucketGroup, ...]
 
 
-def device_bucketed(groups, dtype=torch.float32, device="cpu",
+def device_bucketed(groups, dtype=torch.float32, device=None,
                     rating_dtype: Optional[torch.dtype] = None
                     ) -> DeviceBucketedCSR:
     """Move a host ``build_bucketed`` layout into tensors on ``device``
-    (indices as int64, counts in ``dtype``, ratings in ``rating_dtype``,
-    by default ``dtype``). The fused branch of ``phase_bucketed`` reads
+    (None: the card, ``resolve_device``; indices as int64, counts in
+    ``dtype``, ratings in ``rating_dtype``, by default ``dtype``). The fused branch of ``phase_bucketed`` reads
     bf16 ratings as they are: ``rating_dtype=torch.bfloat16`` rounds them
     once, to the values the JAX package rounds in every phase
     (``uses_fused`` says when a layout needs them)."""
+    device = resolve_device(device, "device_bucketed()")
+
     def t(x, dt):
         return torch.as_tensor(x, device=device).to(dt)
 

@@ -55,7 +55,9 @@ class RecCache:
 
     def invalidate(self, key=None):
         """Drop everything (key=None), one exact key, or every tuple key
-        whose first element is ``key`` (all of one user's entries)."""
+        whose first element is ``key``: all of one user's ``(user_id, n)``
+        entries. The engine's ``("pop", ...)`` and ``("sim", ...)`` entries
+        start with a string, so a user id never reaches them."""
         with self._lock:
             if key is None:
                 self._d.clear()
@@ -63,6 +65,15 @@ class RecCache:
             self._d.pop(key, None)
             for k in [k for k in self._d
                       if isinstance(k, tuple) and k and k[0] == key]:
+                del self._d[k]
+
+    def invalidate_popular(self):
+        """Drop every ("pop", ...) entry — the engine calls this when the
+        base item counts change (online-update compaction), which per-user
+        invalidation cannot reach."""
+        with self._lock:
+            for k in [k for k in self._d
+                      if isinstance(k, tuple) and k and k[0] == "pop"]:
                 del self._d[k]
 
     def __len__(self):

@@ -9,6 +9,7 @@ two packages in both directions. The orbax backend is JAX-only.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -94,3 +95,8 @@ def load_checkpoint(path: str, device=None) -> Tuple[MFState, dict]:
         state = state_from_numpy(z["U"], z["V"], z["bu"], z["bi"], z["mu"],
                                  device=device, dtype=dtype)
     return state, manifest
+
+
+def config_dict(cfg) -> dict:
+    """The run config as the plain dict a manifest carries."""
+    return dataclasses.asdict(cfg)
