@@ -56,7 +56,22 @@ Run from the repository root:  python3 chip_smoke.py
 14. online serving on the trained main-path state: ``add_ratings`` (row
     gather + K1) against a float64 solve, ``compact``, ``popular``,
     ``similar`` / ``precompute_similar`` against a float64 cosine,
-    ``recommend_cold``.
+    ``recommend_cold``;
+15. K1's packed-triangle body (128 < n <= 256) at n = 129, 192 and 256 on
+    20,000 guarded systems against a float64 solve (within cond(A) n 2^-24),
+    padding rows exactly 0, timed at n = 192 and 256 beside its plain
+    version, ``torch.linalg.solve`` and the bound (run right after item 3);
+16. ALS-WR at rank 192 with bf16 gathers through ``train()`` on the
+    ML-20M-shaped set, 2 epochs: row gather -> einsum -> K1, no
+    ``fused_gram``; RMSE falls, trash and cold rows 0; then fold-in of 256
+    users at rank 192 and, from a random start, at rank 256;
+17. the command line in process (``ycnr_tpu_torch.cli.main``) at full
+    width from a ``RatingsStore`` of the same arrays: ``train --preset
+    ml20m-als`` (the main path's split through a config file) held to an
+    in-process ``train()`` and the reference trajectory, ``validate
+    --hit-rate``, ``recommend --all --scorer fused`` (K2) against in-process
+    ``recommend_all``, ``--user``, ``--rated`` (fold-in), ``export``, and a
+    three-lam ``tune`` whose entries equal standalone ``train()`` runs.
 
 Every path runs with the kernels' launch counts set to 0 just before it,
 and each kernel must have launched on the paths that use it. Every failed
@@ -68,6 +83,7 @@ name and power limit (``nvidia-smi``), a JSON line of per-kernel results
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -133,8 +149,12 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 
 
+_T0 = time.time()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of the run's log, prefixed by the seconds since the start."""
+    print(f"[{time.time() - _T0:6.1f} s]", *a, flush=True)
 
 
 def check(ok: bool, what: str):
@@ -159,6 +179,14 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / iters
+
+
+def k1_bound_ms(n: int, B: int):
+    """K1's bound for B systems of size n: read A and b, write x, against
+    the Cholesky factorization's n^3/3 flops and the two triangular
+    solves' 2 n^2 (an FMA counts two), on the f32 CUDA cores."""
+    return bound_ms(4 * B * (n * n + 2 * n), B * (n ** 3 / 3 + 2 * n * n),
+                    PEAK_F32)
 
 
 def guarded_systems(n: int, batch: int, seed: int, dev):
@@ -220,9 +248,7 @@ def phase_k1(dev) -> dict:
     lib_ms = cuda_ms(lambda: torch.linalg.solve(A, b))
     ms = min(ms, cuda_ms(lambda: spd_solve_cuda(A, b)))
     plain_ms = min(plain_ms, cuda_ms(lambda: spd_solve_reference(A, b)))
-    # read A and b, write x; Cholesky n^3/3 + two triangular solves n^2 FMA
-    bnd = bound_ms(4 * B * (n * n + 2 * n),
-                   2 * B * (n ** 3 / 3 + n * n), PEAK_F32)
+    bnd = k1_bound_ms(n, B)
     log(f"K1 n={n} B={B}: kernel {ms:.4f} ms, plain (torch.linalg."
         f"cholesky + cholesky_solve, f32) {plain_ms:.4f} ms, "
         f"torch.linalg.solve {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
@@ -240,6 +266,73 @@ def phase_k1(dev) -> dict:
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1]}
+
+
+def phase_k1_wide(dev) -> dict:
+    """K1's packed-triangle body (128 < n <= 256) at n = 129, 192 and 256,
+    B = 20,000 guarded systems (padding systems included; B = 8 and 256 are
+    its first systems): held to a float64 solve within K1_RTOL over all
+    systems and within f32 Cholesky's forward error cond(A) n 2^-24 on the
+    first 512 (eigenvalues in float64), padding rows exactly 0; at n =
+    192 and 256 timed beside the plain version (cholesky + cholesky_solve),
+    torch.linalg.solve and the bound."""
+    from ycnr_tpu_torch.ops.spd_solve import spd_solve_cuda, \
+        spd_solve_reference
+    from ycnr_tpu_torch.tools.probe_gather import graph_ms
+
+    out = {}
+    for n in (129, 192, 256):
+        B = 20_000
+        A, b, pad = guarded_systems(n, B, seed=n, dev=dev)
+        x = spd_solve_cuda(A, b)
+        ref = spd_solve_reference(A.double(), b.double())
+        sync()
+        err = (x.double() - ref).abs()
+        rel = err.amax(1) / ref.abs().amax(1).clamp_min(1e-300)
+        check(bool(torch.isfinite(x).all()), f"K1 n={n}: finite")
+        check(bool((x[pad] == 0).all()), f"K1 n={n}: padding rows exactly 0")
+        live = ~pad[:512]
+        w = torch.linalg.eigvalsh(A[:512][live].double())
+        bound = w[:, -1] / w[:, 0] * n * 2.0 ** -24
+        within = bool((rel[:512][live] <= bound).all())
+        log(f"K1 n={n} B={B}: max rel err {rel[~pad].max().item():.3e}, max "
+            f"abs {err.max().item():.3e}; first 512: cond(A) up to "
+            f"{(w[:, -1] / w[:, 0]).max().item():.3e}, every system within "
+            f"cond(A) n 2^-24: {within}; padding rows exactly 0: "
+            f"{int(pad.sum())}")
+        check(rel[~pad].max().item() < K1_RTOL,
+              f"K1 n={n}: max rel err < {K1_RTOL}")
+        check(within, f"K1 n={n}: within cond(A) n 2^-24 of float64")
+        max_abs = err.max().item()
+        del ref, err, w
+        if n == 129:
+            continue
+        # in turns: plain, kernel, library, kernel, plain
+        plain_ms = cuda_ms(lambda: spd_solve_reference(A, b), iters=3,
+                           warmup=1)
+        ms = cuda_ms(lambda: spd_solve_cuda(A, b), iters=3, warmup=1)
+        lib_ms = cuda_ms(lambda: torch.linalg.solve(A, b), iters=3, warmup=1)
+        ms = min(ms, cuda_ms(lambda: spd_solve_cuda(A, b), iters=3,
+                             warmup=1))
+        plain_ms = min(plain_ms, cuda_ms(lambda: spd_solve_reference(A, b),
+                                         iters=3, warmup=1))
+        bnd = k1_bound_ms(n, B)
+        small = {}
+        for m in (8, 256):
+            As, bs = A[:m].contiguous(), b[:m].contiguous()
+            small[m] = graph_ms(lambda: spd_solve_cuda(As, bs), 20)
+        log(f"K1 n={n} B={B}: kernel {ms:.4f} ms, plain (torch.linalg."
+            f"cholesky + cholesky_solve, f32) {plain_ms:.4f} ms, "
+            f"torch.linalg.solve {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}), {100 * bnd[0] / ms:.1f}% of it; B=8 "
+            f"{small[8]:.4f} ms, B=256 {small[256]:.4f} ms (device time, "
+            f"CUDA graph of 20 calls)")
+        out[n] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                  "library_ms": lib_ms, "bound_ms": bnd[0],
+                  "bound_by": bnd[1]}
+        del A, b, x
+        torch.cuda.empty_cache()
+    return out
 
 
 def random_rated_bits(n_users: int, n_items: int, density: float, seed: int):
@@ -784,6 +877,279 @@ def phase_fold_in(state, tu, ti, tr) -> dict:
     check(served_rated == 0, "fold-in serves no rated item")
     check(top_i.shape == (FOLD_USERS, 10), "fold-in top-10 shape")
     return launches
+
+
+def phase_rank192(dev, tu, ti, tr, su, si, sr, smi: str) -> dict:
+    """ALS-WR at rank 192 with bf16 gathers through train() on the
+    ML-20M-shaped set, 2 epochs: above fused_gram's width the phase takes
+    row gather -> einsum -> K1 (the packed body at n = 192), so fused_gram
+    must not launch; held-out RMSE falls, trash and cold rows stay 0; one
+    more epoch on the same layouts profiled by kernel. Then
+    fold-in of 256 users at rank 192 (K1 at n = 192), and at rank 256 from
+    a random start (K1 at n = 256), each against a float64 solve."""
+    from ycnr_tpu_torch.config import ALSConfig, DataConfig, RunConfig
+    from ycnr_tpu_torch.data.dataset import Dataset
+    from ycnr_tpu_torch.models.base import init_state
+    from ycnr_tpu_torch.models.bucketed_phase import (als_epoch_fn,
+                                                      device_bucketed)
+    from ycnr_tpu_torch.train.loop import train
+
+    n_users, n_items = MAIN["n_users"], MAIN["n_items"]
+    cfg = RunConfig(name="rank192", algorithm="als",
+                    data=DataConfig(chunk_len=32, max_groups=MAIN["groups"]),
+                    als=ALSConfig(rank=192, lam=MAIN["lam"], epochs=2,
+                                  gather_dtype="bfloat16"),
+                    out_dir="")
+    ds = Dataset(n_users=n_users, n_items=n_items, train_u=tu, train_i=ti,
+                 train_r=tr, test_u=su, test_i=si, test_r=sr,
+                 mu=float(tr.mean()), chunk_len=32, rank_hint=192)
+    sync()
+    reset_launches()
+    t0 = time.time()
+    with shared_bucketed_layouts({}) as built:
+        res = train(cfg, dataset=ds, device=dev)
+    sync()
+    wall = time.time() - t0
+    launches = read_launches()
+    log(f"rank 192 train() (2 epochs, layouts built inside): {wall:.1f} s; "
+        f"held-out rmse {[round(x, 6) for x in res.rmse_history]}; kernel "
+        f"launches {launches}")
+    check(launches["spd_solve"] > 0, "K1 launched at rank 192")
+    check(launches["row_gather"] > 0, "row_gather launched at rank 192")
+    check(launches["fused_gram"] == 0, "fused_gram does not launch above "
+          "its width (the row gather -> einsum -> K1 route)")
+    check(res.rmse_history[1] < res.rmse_history[0], "rank 192: held-out "
+          "rmse falls")
+    check_trash_rows(res.state, "rank 192")
+    cold_u = np.setdiff1d(np.arange(n_users), tu)
+    cold_i = np.setdiff1d(np.arange(n_items), ti)
+    check(not bool(res.state.U[torch.as_tensor(cold_u, device=dev)].any())
+          and not bool(res.state.V[torch.as_tensor(cold_i,
+                                                   device=dev)].any()),
+          "rank 192: cold rows stay 0")
+    state = res.state
+    del res
+    # one more epoch on train()'s own layouts, profiled by kernel
+    ul192, il192 = (device_bucketed(g, torch.float32, dev)
+                    for g in built.values())
+    epoch = als_epoch_fn(ul192, il192, MAIN["lam"], gather_bf16=True)
+    state, _ = profile_breakdown(lambda: epoch(state), "a rank-192 epoch")
+    del ul192, il192, epoch, built
+    f192 = phase_fold_in(state, tu, ti, tr)
+    k1_192 = launches["spd_solve"] + f192["spd_solve"]
+    del state
+    st256 = init_state(n_users, n_items, 256, seed=0, device=dev)
+    f256 = phase_fold_in(st256, tu, ti, tr)
+    del st256
+    torch.cuda.empty_cache()
+    log(f"K1 launches: n = 192 {k1_192} (train() and fold-in), n = 256 "
+        f"{f256['spd_solve']} (fold-in); on {smi}")
+    return {"k1_n192": k1_192, "k1_n256": f256["spd_solve"]}
+
+
+@contextlib.contextmanager
+def shared_bucketed_layouts(known: dict):
+    """While open, train()'s host bucketed-layout builds are memoized by
+    their arguments (the arrays by identity), starting from ``known``:
+    the in-process train() runs that the command line is held to then
+    build no layout that the main path already built. The layouts are a
+    pure function of those arguments, so no device work changes."""
+    import importlib
+
+    loop = importlib.import_module("ycnr_tpu_torch.train.loop")
+    real = loop.build_bucketed
+    cache = dict(known)
+
+    def build(a, b, r, na, nb, chunk, rank, max_groups):
+        key = (id(a), id(b), id(r), na, nb, chunk, rank, max_groups)
+        if key not in cache:
+            cache[key] = real(a, b, r, na, nb, chunk, rank,
+                              max_groups=max_groups)
+        return cache[key]
+
+    loop.build_bucketed = build
+    try:
+        yield cache
+    finally:
+        loop.build_bucketed = real
+
+
+def phase_cli(dev, u, i, r, tu, ti, tr, su, si, sr, ul, il, smi: str,
+              tmp: str) -> dict:
+    """The command line, in process (ycnr_tpu_torch.cli.main) on the card at
+    full width: a RatingsStore written once from the ML-20M-shaped arrays;
+    train --preset ml20m-als (rank 64, bf16: fused_gram + K1) with a config
+    file that gives the main path's split (test_fraction 0.05, seed 0) and
+    groups, held to an in-process train() and the reference trajectory;
+    validate --hit-rate; recommend --all --scorer fused (K2) against
+    in-process recommend_all, --user, --rated (fold-in: K1); export; tune
+    over three lams, each entry against a standalone train(). The
+    in-process runs reuse the main path's host layouts ul, il (the same
+    arguments), as shared_bucketed_layouts says."""
+    import dataclasses
+    import io
+
+    from ycnr_tpu_torch.cli import main as cli
+    from ycnr_tpu_torch.config import get_preset
+    from ycnr_tpu_torch.data.dataset import Dataset
+    from ycnr_tpu_torch.data.store import RatingsStore
+    from ycnr_tpu_torch.eval.recommend import NEG_INF, recommend_all
+    from ycnr_tpu_torch.ops.layout import build_blocked_csr
+    from ycnr_tpu_torch.train.checkpoint import load_checkpoint
+    from ycnr_tpu_torch.train.loop import train
+
+    store = os.path.join(tmp, "store")
+    t0 = time.time()
+    RatingsStore(store).append(u, i, r)
+    log(f"cli: RatingsStore of {len(r):,} rows written in "
+        f"{time.time() - t0:.1f} s")
+    cfg_file = os.path.join(tmp, "split.json")
+    with open(cfg_file, "w") as f:
+        json.dump({"data": {"test_fraction": 0.05, "seed": 0,
+                            "max_groups": MAIN["groups"]}}, f)
+    out = os.path.join(tmp, "runs")
+    per_cmd = {}
+
+    def run(name, *argv):
+        """One command on the card (the default device); its JSON lines
+        and the kernels it launched."""
+        sync()
+        reset_launches()
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            cli(list(argv))
+        sync()
+        launches = read_launches()
+        per_cmd[name] = launches
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()
+                 if x.startswith("{")]
+        log(f"cli {name}: {time.time() - t0:.1f} s; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        return lines, launches
+
+    lines, ln = run("train", "train", "--preset", "ml20m-als", "--config",
+                    cfg_file, "--store", store, "--epochs", "4", "--out", out)
+    check(ln["fused_gram"] > 0 and ln["spd_solve"] > 0,
+          "cli train: fused_gram and K1 launched")
+    run_dir = os.path.join(out, "ml20m-als")
+    got = [e["rmse_test"] for e in read_events(run_dir) if "rmse_test" in e]
+    check(len(got) == 4 and lines[-1]["epochs"] == 4, "cli train: 4 epochs")
+    base = get_preset("ml20m-als")
+    cfg = base.replace(
+        data=dataclasses.replace(base.data, test_fraction=0.05, seed=0,
+                                 max_groups=MAIN["groups"]),
+        als=dataclasses.replace(base.als, epochs=4), out_dir="")
+    ds = Dataset(n_users=MAIN["n_users"], n_items=MAIN["n_items"],
+                 train_u=tu, train_i=ti, train_r=tr, test_u=su, test_i=si,
+                 test_r=sr, mu=float(tr.mean()), chunk_len=32, rank_hint=64)
+    g = MAIN["groups"]
+    known = {(id(tu), id(ti), id(tr), ds.n_users, ds.n_items, 32, 64, g): ul,
+             (id(ti), id(tu), id(tr), ds.n_items, ds.n_users, 32, 64, g): il}
+    with shared_bucketed_layouts(known):
+        solo = [round(x, 6) for x in train(cfg, dataset=ds,
+                                           device=dev).rmse_history]
+    log(f"cli train rmse {got}; in-process train() {solo}; reference "
+        f"{list(ANCHOR_RMSE)}")
+    check(all(abs(a - b) <= 1e-6 for a, b in zip(got, solo)),
+          "cli train: per-epoch rmse equals in-process train()")
+    for ep, (a, want) in enumerate(zip(got, ANCHOR_RMSE)):
+        check(abs(a - want) <= RMSE_TOL, f"cli train epoch {ep + 1} rmse "
+              f"{a} within {RMSE_TOL} of {want}")
+    ckpt = os.path.join(run_dir, "ckpt")
+
+    lines, _ = run("validate", "validate", "--ckpt", ckpt, "--store", store,
+                   "--test-fraction", "0.05", "--hit-rate")
+    log(f"cli validate: {lines[-1]}")
+    check(abs(lines[-1]["rmse_test"] - got[-1]) <= 1e-6,
+          "cli validate reproduces the last rmse")
+    check(0.0 <= lines[-1]["hit_rate"] <= 1.0, "cli validate: hit rate")
+
+    recs = os.path.join(tmp, "recs.jsonl")
+    lines, ln = run("recommend --all --scorer fused", "recommend", "--ckpt",
+                    ckpt, "--store", store, "--all", "-n", "10", "--scorer",
+                    "fused", "--save", recs)
+    check(ln["fused_scores"] > 0, "cli recommend --all --scorer fused: K2 "
+          "launched")
+    with open(recs) as f:
+        rows = [json.loads(x) for x in f]
+    check([x["user"] for x in rows] == np.unique(u).tolist(),
+          "cli recommend --all: every rated user, in order")
+    # in-process recommend_all on SAMPLE_USERS sampled users (their own
+    # layout: K2 scores every user on its own)
+    state, _ = load_checkpoint(ckpt, device=dev)
+    rng = np.random.default_rng(2)
+    pick = np.sort(rng.choice(len(rows), SAMPLE_USERS, replace=False))
+    sample = [rows[j] for j in pick]
+    keep = np.isin(u, [x["user"] for x in sample])
+    slay = build_blocked_csr(u[keep], i[keep], r[keep], state.n_users,
+                             state.n_items, rank_hint=state.rank)
+    users, items, scores = recommend_all(state, slay, n=10, method="fused")
+    check(users.tolist() == [x["user"] for x in sample],
+          "in-process recommend_all serves the sampled users")
+    # the command drops a list's NEG_INF-masked tail (fewer than n unrated)
+    same = sum(x["items"] == want[sc > NEG_INF / 2].tolist()
+               for x, want, sc in zip(sample, items, scores))
+    order = np.argsort(u, kind="stable")
+    us, is_ = u[order], i[order]
+    # probe in the index's own dtype (a Python int would make NumPy
+    # convert all 20M entries on every probe)
+    probe = np.asarray([x["user"] for x in sample], us.dtype)
+    lo, hi = np.searchsorted(us, probe), np.searchsorted(us, probe, "right")
+    served_rated = sum(len(set(x["items"]) & set(is_[a:b].tolist()))
+                       for x, a, b in zip(sample, lo, hi))
+    log(f"cli recommend --all --scorer fused: {len(rows):,} users; of "
+        f"{len(sample):,} sampled, lists equal to in-process "
+        f"recommend_all's: {same:,}, rated items served: {served_rated}")
+    check(same == len(sample), "cli recommend --all: ids of in-process "
+          "recommend_all")
+    check(served_rated == 0, "cli recommend --all: no rated item served")
+    del rows, slay
+
+    lines, _ = run("recommend --user", "recommend", "--ckpt", ckpt,
+                   "--store", store, "--user", "1", "2", "3", "-n", "10")
+    check(len(lines) == 3 and all(len(x["items"]) == 10 for x in lines),
+          "cli recommend --user: three lists of 10")
+    rated = ",".join(f"{int(a)}:{float(b)}" for a, b in
+                     zip(is_[:20], np.asarray(r)[order][:20]))
+    lines, ln = run("recommend --rated", "recommend", "--ckpt", ckpt,
+                    "--store", store, "--rated", rated, "-n", "10")
+    check(ln["spd_solve"] > 0, "cli recommend --rated: K1 launched")
+    check(len(lines[-1]["items"]) == 10 and not set(lines[-1]["items"])
+          & set(int(a) for a in is_[:20]),
+          "cli recommend --rated: 10 unrated items")
+    emb = os.path.join(tmp, "emb.npz")
+    lines, _ = run("export", "export", "--ckpt", ckpt, "--out", emb)
+    z = np.load(emb)
+    check(z["U"].shape == (MAIN["n_users"], 64) and bool(
+        np.isfinite(z["V"]).all()), "cli export: U and V")
+
+    lines, ln = run("tune", "tune", "--preset", "ml20m-als", "--config",
+                    cfg_file, "--store", store, "--lams", "0.03,0.05,0.08",
+                    "--seeds", "0", "--epochs", "2", "--out", out)
+    board, best = lines[:-1], lines[-1]
+    check(len(board) == 3 and best["event"] == "best", "cli tune: three "
+          "entries and the best")
+    for e in board:
+        if e["lam"] == MAIN["lam"]:
+            want = solo[:2]  # the 4-epoch run above, at the same lam
+        else:
+            c = cfg.replace(als=dataclasses.replace(cfg.als, lam=e["lam"],
+                                                    epochs=2))
+            with shared_bucketed_layouts(known):
+                want = [round(x, 6) for x in train(
+                    c, dataset=ds, device=dev).rmse_history]
+        log(f"cli tune lam {e['lam']}: {e['rmse']}; standalone train() "
+            f"{want}")
+        check(e["rmse"] == want or all(abs(a - b) <= 1e-6 for a, b in
+                                       zip(e["rmse"], want)),
+              f"cli tune lam {e['lam']}: equals a standalone train()")
+    st, man = load_checkpoint(os.path.join(best["out_dir"], "ckpt"),
+                              device=dev)
+    check(man["config"]["als"]["lam"] == best["lam"] and bool(
+        torch.isfinite(st.U).all()), "cli tune: best checkpoint loads")
+    log(f"cli: kernel launches per command {per_cmd}; on {smi}")
+    return per_cmd
 
 
 def ml1m_sgd_config(method: str, out_dir: str):
@@ -1355,6 +1721,8 @@ def run(dev):
     phase_ingest()
     k1 = phase_k1(dev)
     sync()
+    k1_wide = phase_k1_wide(dev)
+    sync()
     k2 = phase_k2(dev)
     sync()
     gather = phase_gather(dev)
@@ -1529,6 +1897,15 @@ def run(dev):
     del rec
     sync()
 
+    # ---- rank 192 through train(), fold-in at 192 and 256 ----------------
+    wide = phase_rank192(dev, tu, ti, tr, su, si, sr, smi)
+    sync()
+
+    # ---- the command line, in process, at full width ---------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli(dev, u, i, r, tu, ti, tr, su, si, sr, ul, il, smi, tmp)
+    sync()
+
     # ---- SGD (ml1m-sgd) and BPR (ml20m-bpr) through train() --------------
     from ycnr_tpu_torch.data.dataset import Dataset, load_dataset
 
@@ -1622,6 +1999,14 @@ def run(dev):
          "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
          "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
          "bound_by": gram["bound_by"], "library_ms": None},
+    ] + [
+        # K1's packed-triangle body, with the launches of the rank-192 path
+        # (train() and fold-in) and of fold-in at rank 256
+        {"name": f"K1 n{n}", "route": "cuda",
+         "source": "ycnr_tpu_torch/csrc/spd_solve.cu",
+         "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
+         "launches": wide[f"k1_n{n}"], **k1_wide[n]}
+        for n in (192, 256)
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

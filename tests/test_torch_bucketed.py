@@ -182,7 +182,50 @@ def test_phase_refuses_ratings_of_another_dtype(problem):
 ])
 def test_uses_fused_only_for_bf16_als_on_cuda(device, dtype, alpha, bf16,
                                               want):
-    assert tbp.uses_fused(device, dtype, alpha, bf16) is want
+    assert tbp.uses_fused(device, dtype, alpha, bf16, 64) is want
+
+
+@pytest.mark.parametrize("width,want", [(1, True), (64, True), (128, True),
+                                        (129, False), (192, False),
+                                        (256, False)])
+def test_uses_fused_only_up_to_fused_gram_width(width, want):
+    """The fused branch only where fused_gram takes the width (MAX_W);
+    above it the phase takes the row gather -> einsum -> K1 route."""
+    from ycnr_tpu_torch.ops.fused_gram import MAX_W
+
+    assert MAX_W == 128
+    assert tbp.uses_fused("cuda", torch.float32, None, True, width) is want
+
+
+@pytest.mark.parametrize("gather_bf16", [False, True])
+def test_rank_136_epoch_matches_jax(gather_bf16):
+    """Above fused_gram's MAX_W the phase takes the row gather -> einsum ->
+    guarded solve route, bf16 gathers or not; a rank-136 ALS-WR epoch of
+    it equals the JAX package's als_epochs_bucketed (f64 at 1e-9: with
+    bf16 gathers both round the gathered rows alike, then sum in f64)."""
+    k = 136
+    u, i, r = synthetic_ratings(NU, NI, NNZ, true_rank=4, noise=0.3, seed=5)
+    (tu, ti, tr), (su, si, sr) = train_test_split(u, i, r, 0.1, 0)
+    ul = build_bucketed(tu, ti, tr, NU, NI, 32, k, max_groups=3)
+    il = build_bucketed(ti, tu, tr, NI, NU, 32, k, max_groups=3)
+    test = pad_coo(su, si, sr, NU, NI, 256)
+    jdt, tdt = jnp.float64, torch.float64
+    js = jbase.init_state(NU, NI, k, seed=2, dtype=jdt)
+    ts = tbase.init_state(NU, NI, k, seed=2, dtype=tdt, device="cpu")
+    assert not tbp.uses_fused("cuda", torch.float32, None, gather_bf16, k)
+    js2, (rj, _) = jbp.als_epochs_bucketed(
+        js, jbp.device_bucketed(ul, jdt), jbp.device_bucketed(il, jdt), LAM,
+        1, _jtest(test, jdt), gather_bf16=gather_bf16)
+    ts2, (rt, _) = tbp.als_epochs_bucketed(
+        ts, tbp.device_bucketed(ul, tdt, "cpu"),
+        tbp.device_bucketed(il, tdt, "cpu"), LAM, 1, _ttest(test, tdt),
+        gather_bf16=gather_bf16)
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=0,
+                               atol=1e-9)
+    for a, b in zip(js2[:2], ts2[:2]):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-9,
+                                   atol=1e-9)
+    assert torch.all(ts2.U[-1] == 0) and torch.all(ts2.V[-1] == 0)
 
 
 def test_fused_branch_equals_bucket_solve_rows(problem):

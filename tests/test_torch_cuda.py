@@ -60,11 +60,48 @@ def test_k1_matches_float64_reference(dev, n, B):
 
 def test_k1_refuses_what_it_does_not_take(dev):
     A, b = _spd(4, 8, 0, dev)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):  # float64 is solved on the CPU only
         sp.spd_solve(A.double(), b.double())
-    A, b = _spd(2, 129, 0, dev)
+    A, b = _spd(2, sp.MAX_N + 1, 0, dev)
     with pytest.raises(ValueError):
         sp.spd_solve(A, b)
+
+
+def _guarded_spd(B, n, seed, dev):
+    """ALS-like normal equations over n // 4 gathered rows plus the ridge
+    (cond(A) in the hundreds to thousands); systems 0-2 are padding."""
+    rng = np.random.default_rng(seed)
+    R = n // 4
+    F = torch.as_tensor(rng.normal(0, 0.3, (B, R, n)), dtype=torch.float32,
+                        device=dev)
+    r = torch.as_tensor(rng.normal(3, 1, (B, R)), dtype=torch.float32,
+                        device=dev)
+    A = F.transpose(1, 2) @ F + 0.05 * R * torch.eye(n, device=dev)
+    A = 0.5 * (A + A.transpose(1, 2))
+    b = torch.einsum("brk,br->bk", F, r)
+    A[:3] = torch.eye(n, device=dev)
+    b[:3] = 0
+    return A.contiguous(), b.contiguous()
+
+
+@pytest.mark.parametrize("B", [1, 257, 2000])
+@pytest.mark.parametrize("n", [129, 192, 256])
+def test_k1_wide_within_cholesky_forward_error(dev, n, B):
+    """The packed-triangle body (n > 128) against a float64 solve, within
+    cond(A) n 2^-24 per system; padding systems exactly 0."""
+    A, b = _guarded_spd(B + 3, n, n + B, dev)
+    before = sp.launches
+    x = sp.spd_solve(A, b)
+    torch.cuda.synchronize()
+    assert sp.launches == before + 1
+    Ad = A.double()
+    ref = sp.spd_solve_reference(Ad, b.double())
+    rel = ((x.double() - ref).abs().amax(1)
+           / ref.abs().amax(1).clamp_min(1e-300))[3:]
+    w = torch.linalg.eigvalsh(Ad[3:])
+    bound = w[:, -1] / w[:, 0] * n * 2.0 ** -24
+    assert bool((rel <= bound).all()), (rel.max().item(), bound.min().item())
+    assert torch.all(x[:3] == 0)
 
 
 def _k2_inputs(u_b, k, n_seg, seed, dev):
@@ -302,7 +339,7 @@ def test_fused_branch_refuses_f32_ratings(dev):
     r = rng.uniform(1, 5, 600).astype(np.float32)
     lay = build_bucketed(u, i, r, nu, ni, 8, k, max_groups=2)
     st = init_state(nu, ni, k, seed=0, device=dev)
-    assert bp.uses_fused(dev, torch.float32, None, True)
+    assert bp.uses_fused(dev, torch.float32, None, True, k)
     with pytest.raises(ValueError, match="ratings"):
         bp.phase_bucketed(st.U, st.V, bp.device_bucketed(lay, device=dev),
                           0.05, gather_bf16=True)
@@ -468,3 +505,75 @@ def test_serving_asked_for_k2_runs_k2_or_raises(dev):
         assert log.events[-1]["scorer"] == "fused"
         users, ids, _ = recommend_all(st, ds.user_layout, 10, method="fused")
         assert ids.shape == (len(np.unique(ds.train_u)), 10)
+
+
+def test_rank192_bucketed_epoch_takes_the_einsum_route(dev):
+    """Above fused_gram's MAX_W, bf16 ALS-WR on the card runs row gather ->
+    einsum -> K1 (the packed body at n = 192), never fused_gram; the epoch
+    agrees with the same epoch on the CPU and keeps the trash rows 0."""
+    from ycnr_tpu_torch.models import bucketed_phase as bp
+    from ycnr_tpu_torch.models.base import init_state
+    from ycnr_tpu_torch.ops.bucketed import build_bucketed
+
+    rng = np.random.default_rng(192)
+    nu, ni, k = 300, 200, 192
+    u, i = rng.integers(0, nu, 6000), rng.integers(0, ni, 6000)
+    r = rng.uniform(1, 5, 6000).astype(np.float32)
+    ul = build_bucketed(u, i, r, nu, ni, 32, k, max_groups=3)
+    il = build_bucketed(i, u, r, ni, nu, 32, k, max_groups=3)
+    assert not bp.uses_fused(dev, torch.float32, None, True, k)
+    out = {}
+    for d in (dev, "cpu"):
+        st = init_state(nu, ni, k, seed=3, device=d)
+        epoch = bp.als_epoch_fn(bp.device_bucketed(ul, device=d),
+                                bp.device_bucketed(il, device=d), 0.05,
+                                gather_bf16=True)
+        g0, s0 = fg.launches, sp.launches
+        out[str(d)] = epoch(st)
+        if d == dev:
+            torch.cuda.synchronize()
+            assert fg.launches == g0 and sp.launches > s0
+    a, b = out[str(dev)], out["cpu"]
+    for x, y in zip(a[:2], b[:2]):
+        assert bool(torch.isfinite(x).all()) and not bool(x[-1].any())
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-3,
+                                   atol=1e-3 * y.abs().max().item())
+
+
+def test_cli_train_and_recommend_all_fused_on_the_card(dev, tmp_path,
+                                                       capsys):
+    """python -m ycnr_tpu_torch on the card (the default device): train a
+    bf16 ALS-WR preset from a store (fused_gram + K1), then recommend --all
+    --scorer fused launches K2, serves no rated item and gives the
+    in-process recommend_all's ids."""
+    import json
+
+    from ycnr_tpu_torch.cli import main
+    from ycnr_tpu_torch.data.store import RatingsStore
+    from ycnr_tpu_torch.eval.recommend import recommend_all
+    from ycnr_tpu_torch.ops.layout import build_blocked_csr
+    from ycnr_tpu_torch.train.checkpoint import load_checkpoint
+
+    store = str(tmp_path / "s")
+    main(["prepare", "--source", "synthetic", "--store", store, "--users",
+          "400", "--items", "2000", "--ratings", "30000"])
+    g0, s0 = fg.launches, sp.launches
+    main(["train", "--preset", "ml20m-als", "--store", store, "--epochs",
+          "2", "--rank", "16", "--out", str(tmp_path / "runs")])
+    assert fg.launches > g0 and sp.launches > s0
+    capsys.readouterr()
+    ckpt = str(tmp_path / "runs" / "ml20m-als" / "ckpt")
+    k0 = ft.launches
+    main(["recommend", "--ckpt", ckpt, "--store", store, "--all", "-n",
+          "10", "--scorer", "fused", "--save", str(tmp_path / "r.jsonl")])
+    assert ft.launches > k0
+    rows = [json.loads(x) for x in open(tmp_path / "r.jsonl")]
+    u, i, r = RatingsStore(store).read_all()
+    state, _ = load_checkpoint(ckpt)
+    lay = build_blocked_csr(u, i, r, state.n_users, state.n_items,
+                            rank_hint=state.rank)
+    users, items, _ = recommend_all(state, lay, n=10, method="fused")
+    assert [x["user"] for x in rows] == users.tolist()
+    for x, want in zip(rows, items):
+        assert x["items"] == want.tolist()
+        assert not set(x["items"]) & set(i[u == x["user"]].tolist())

@@ -16,6 +16,7 @@ from ycnr_tpu import config as jconfig
 from ycnr_tpu.data import dataset as jdataset
 from ycnr_tpu.data import movielens as jmovielens
 from ycnr_tpu.data import split as jsplit
+from ycnr_tpu.data import store as jstore
 from ycnr_tpu.data import synthetic as jsynthetic
 from ycnr_tpu.ops import bucketed as jbucketed
 from ycnr_tpu.ops import layout as jlayout
@@ -26,6 +27,7 @@ from ycnr_tpu_torch import config as tconfig
 from ycnr_tpu_torch.data import dataset as tdataset
 from ycnr_tpu_torch.data import movielens as tmovielens
 from ycnr_tpu_torch.data import split as tsplit
+from ycnr_tpu_torch.data import store as tstore
 from ycnr_tpu_torch.data import synthetic as tsynthetic
 from ycnr_tpu_torch.ops import bucketed as tbucketed
 from ycnr_tpu_torch.ops import layout as tlayout
@@ -184,6 +186,32 @@ def _rec_cache(m):
     return out
 
 
+def _store_script(m, path):
+    """Write a store and read it back: two appends with timestamps, the id
+    maps, portions across segment edges, the refusals."""
+    st = m.RatingsStore(path)
+    u, i, r = _coo(n=700)
+    ts = np.arange(len(r), dtype=np.int64) * 3
+    st.append(u[:400], i[:400], r[:400], ts=ts[:400])
+    st.append(u[400:], i[400:], r[400:], ts=ts[400:])
+    st.set_id_maps(np.arange(90) * 7, np.arange(70) * 11)
+    errs = []
+    for bad in (dict(ts=None), dict(ts=ts[:3])):
+        try:
+            st.append(u[:5], i[:5], r[:5], **bad)
+        except ValueError as e:
+            errs.append(str(e))
+    back = m.RatingsStore(path)  # reopened from meta.json
+    return (dict(back.meta), back.n_rows, list(back.stream(portion=256)),
+            back.read_all(), back.read_ts(), back.id_maps(), errs,
+            m.RatingsStore(os.path.join(path, "empty")).read_all())
+
+
+def _ratings_store(m):
+    with tempfile.TemporaryDirectory() as d:
+        return _store_script(m, d)
+
+
 _CASES = {
     "synthetic_ratings": (jsynthetic, tsynthetic, _synthetic),
     "synthetic_ratings_calibrated": (jsynthetic, tsynthetic, _calibrated),
@@ -200,6 +228,7 @@ _CASES = {
     "oracle_bpr": (joracle, toracle, _oracle_bpr),
     "metrics_logger": (jmetrics, tmetrics, _metrics_logger),
     "rec_cache": (jcache, tcache, _rec_cache),
+    "ratings_store": (jstore, tstore, _ratings_store),
 }
 
 
@@ -224,3 +253,21 @@ def _assert_same(a, b, where="result"):
 def test_host_copy_matches_the_jax_package(case):
     jmod, tmod, run = _CASES[case]
     _assert_same(run(jmod), run(tmod), case)
+
+
+@pytest.mark.parametrize("writer,reader", [(jstore, tstore),
+                                           (tstore, jstore)])
+def test_ratings_store_reads_across_the_packages(tmp_path, writer, reader):
+    """A store written by one package reads back in the other: the same
+    rows, timestamps, id maps and meta, and appends continue it."""
+    want = _store_script(writer, str(tmp_path / "s"))
+    got = reader.RatingsStore(str(tmp_path / "s"))
+    _assert_same(got.read_all(), want[3])
+    _assert_same(got.read_ts(), want[4])
+    _assert_same(got.id_maps(), want[5])
+    _assert_same(dict(got.meta), want[0])
+    got.append([1], [2], [3.5], ts=[99])
+    again = writer.RatingsStore(str(tmp_path / "s"))
+    assert again.n_rows == want[1] + 1
+    assert again.read_all()[2][-1] == np.float32(3.5)
+    assert again.read_ts()[-1] == 99

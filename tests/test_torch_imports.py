@@ -63,6 +63,9 @@ _SLICE_MODULES = {
     "ycnr_tpu_torch.models.bpr", "ycnr_tpu_torch.eval.recommend",
     "ycnr_tpu_torch.eval.ranking", "ycnr_tpu_torch.eval.similar",
     "ycnr_tpu_torch.serve.engine", "ycnr_tpu_torch.serve.cache",
+    "ycnr_tpu_torch.cli", "ycnr_tpu_torch.__main__",
+    "ycnr_tpu_torch.data.store", "ycnr_tpu_torch.utils",
+    "ycnr_tpu_torch.utils.profiling", "ycnr_tpu_torch.train.tune",
 }
 
 
@@ -75,7 +78,7 @@ def test_port_imports_without_jax_nvcc_or_triton():
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.splitlines()[:2]
-    assert int(count.split()[0]) >= 38  # every module of the port
+    assert int(count.split()[0]) >= 44  # every module of the port
     assert _SLICE_MODULES <= set(names.split())
 
 
@@ -113,7 +116,7 @@ def test_port_imports_nothing_of_the_jax_package():
         with open(f) as fh:
             if pat.search(fh.read()):
                 offenders.append(os.path.relpath(f, REPO))
-    assert len(files) >= 39 and offenders == []
+    assert len(files) >= 45 and offenders == []
 
 
 def test_chip_smoke_fails_without_a_gpu():
@@ -122,3 +125,33 @@ def test_chip_smoke_fails_without_a_gpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+_BLOCKED_CLI = textwrap.dedent("""
+    import runpy, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "orbax", "triton",
+                                      "ycnr_tpu"):
+                raise ImportError("blocked: " + name)
+
+    sys.meta_path.insert(0, Block())
+    sys.argv = ["ycnr_tpu_torch"] + sys.argv[1:]
+    runpy.run_module("ycnr_tpu_torch", run_name="__main__")
+""")
+
+
+def test_command_line_runs_with_the_jax_package_blocked(tmp_path):
+    """python -m ycnr_tpu_torch prepare / presets, with jax and the JAX
+    package unavailable."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for argv in (["presets"],
+                 ["prepare", "--source", "synthetic", "--store",
+                  str(tmp_path / "s"), "--users", "30", "--items", "20",
+                  "--ratings", "200"]):
+        res = subprocess.run([sys.executable, "-c", _BLOCKED_CLI, *argv],
+                             cwd=str(tmp_path), env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert res.returncode == 0, res.stderr
+    assert '"rows"' in res.stdout

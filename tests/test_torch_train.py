@@ -435,3 +435,97 @@ def test_config_dict_and_config_files_match_jax(tmp_path):
     assert tconfig.config_from_dict({"topn": 3}, base).name == "b"
     with pytest.raises(KeyError, match="unknown config key"):
         tconfig.config_from_dict({"sdg": {}})
+
+
+# --- fused_epochs: the JAX package's block boundaries ----------------------
+
+def _ckpt_epochs(monkeypatch):
+    """Record the epoch of every checkpoint either package's train()
+    writes."""
+    from ycnr_tpu.train import loop as jloop
+    from ycnr_tpu_torch.train import loop as tloop
+
+    seen = {"jax": [], "torch": []}
+    for mod, key in ((jloop, "jax"), (tloop, "torch")):
+        real = mod.save_checkpoint
+
+        def rec(path, state, epoch, *a, _real=real, _key=key, **kw):
+            seen[_key].append(epoch)
+            return _real(path, state, epoch, *a, **kw)
+
+        monkeypatch.setattr(mod, "save_checkpoint", rec)
+    return seen
+
+
+@pytest.mark.parametrize("algo,fused,epochs,every", [
+    ("als", 2, 5, 1), ("als", 3, 7, 2), ("ials", 2, 5, 3),
+    ("ials", 4, 4, 1)])
+def test_fused_epochs_records_and_checkpoints_match_jax(
+        tmp_path, monkeypatch, algo, fused, epochs, every):
+    """fused_epochs = k: one record per epoch marked fused=k (the tail
+    block's own k), the same RMSE as the per-epoch run, the iALS hit rate
+    only on a block's last epoch, checkpoints only at block ends — as the
+    JAX package's _fused_epoch_blocks, whose records these equal."""
+    seen = _ckpt_epochs(monkeypatch)
+    p = dataclasses.replace(getattr(CFG, algo), epochs=epochs)
+    cfg = dataclasses.replace(CFG, algorithm=algo, fused_epochs=fused,
+                              checkpoint_every=every, **{algo: p})
+    ds = load_dataset(cfg.data, rank_hint=6)
+    jr = jtrain(cfg, ds, out_dir=str(tmp_path / "j"))
+    tr = ttrain(cfg, ds, out_dir=str(tmp_path / "t"), device="cpu")
+    np.testing.assert_allclose(tr.rmse_history, jr.rmse_history, rtol=0,
+                               atol=1e-9)
+    per_epoch = ttrain(dataclasses.replace(cfg, fused_epochs=1), ds,
+                       out_dir=None, device="cpu")
+    np.testing.assert_allclose(tr.rmse_history, per_epoch.rmse_history,
+                               rtol=0, atol=1e-12)
+    je = [e for e in _events(tmp_path / "j") if "epoch_s" in e]
+    te = [e for e in _events(tmp_path / "t") if "epoch_s" in e]
+    assert [e["epoch"] for e in te] == list(range(1, epochs + 1))
+    assert [e["fused"] for e in te] == [e["fused"] for e in je]
+    ends = {e["epoch"] for e in te
+            if e["epoch"] % fused == 0 or e["epoch"] == epochs}
+    assert {e["epoch"] for e in te if "hit_rate" in e} == (
+        ends if algo == "ials" else set())
+    assert [e.get("hit_rate") for e in te] == [e.get("hit_rate") for e in je]
+    for a, b in zip(te, je):
+        assert a["rmse_train"] == pytest.approx(b["rmse_train"], abs=1e-6)
+    assert seen["torch"] == seen["jax"] and set(seen["torch"]) <= ends
+
+
+def test_fused_epochs_early_stop_at_a_block_end_matches_jax(tmp_path):
+    """Under patience the port stops where the reference stops: at the end
+    of the block in which the window closed, not at the epoch itself."""
+    cfg = dataclasses.replace(
+        CFG, als=dataclasses.replace(CFG.als, epochs=20), fused_epochs=4,
+        early_stop_patience=2, early_stop_min_delta=1e-3, checkpoint_every=3)
+    ds = load_dataset(cfg.data, rank_hint=6)
+    jr = jtrain(cfg, ds, out_dir=str(tmp_path / "j"))
+    tr = ttrain(cfg, ds, out_dir=str(tmp_path / "t"), device="cpu")
+    per_epoch = ttrain(dataclasses.replace(cfg, fused_epochs=1), ds,
+                       out_dir=None, device="cpu")
+    assert len(tr.rmse_history) == len(jr.rmse_history)
+    assert len(tr.rmse_history) % 4 == 0
+    assert len(per_epoch.rmse_history) < len(tr.rmse_history) < 20
+    stop = [e for e in _events(tmp_path / "t")
+            if e.get("event") == "early_stop"]
+    jstop = [e for e in _events(tmp_path / "j")
+             if e.get("event") == "early_stop"]
+    assert [(e["epoch"], e["best_rmse"]) for e in stop] == \
+        [(e["epoch"], e["best_rmse"]) for e in jstop]
+    _, man = tckpt.load_checkpoint(str(tmp_path / "t" / "ckpt"), device="cpu")
+    assert man["epoch"] == len(tr.rmse_history)
+    np.testing.assert_allclose(tr.state.U.numpy(), np.asarray(jr.state.U),
+                               rtol=1e-9, atol=1e-9)
+
+
+def test_fused_epochs_leave_sgd_and_bpr_per_epoch(tmp_path, explicit_draws):
+    """fused_epochs concerns the ALS/iALS blocks only: an SGD run logs no
+    'fused' field in either package."""
+    cfg = dataclasses.replace(_preset("ml1m-sgd", epochs=2), fused_epochs=2)
+    ds = load_dataset(cfg.data, rank_hint=cfg.sgd.rank)
+    jtrain(cfg, ds, out_dir=str(tmp_path / "j"))
+    ttrain(cfg, ds, out_dir=str(tmp_path / "t"), device="cpu")
+    for d in ("j", "t"):
+        recs = [e for e in _events(tmp_path / d) if "epoch_s" in e]
+        assert len(recs) == 2 and all("fused" not in e for e in recs)

@@ -181,7 +181,9 @@ class RunConfig:
     log_hit_rate: bool = False
     # >1 fuses that many epochs (plus their RMSE evals) into one device
     # program in the JAX package (models/bucketed_phase.als_epochs_bucketed);
-    # the port runs eagerly and ignores it
+    # the port runs eagerly, so nothing is fused, but it keeps the block
+    # boundaries: single-GPU ALS/iALS log each record with fused=k, take the
+    # iALS hit rate, early-stop and checkpoint only at a block's end
     fused_epochs: int = 1
     # out-of-core training (models/ooc.py): keep only the factors (and as
     # much of the compressed wire as fits) resident and stream the rest

@@ -1,7 +1,7 @@
 """Host-side data: synthetic ratings, MovieLens files, splits, datasets.
 
-NumPy only; the port's own copy of ``ycnr_tpu/data`` (without the
-ratings store, which the port does not use).
+NumPy only; the port's own copy of ``ycnr_tpu/data``, the ratings store
+(``store.RatingsStore``) included.
 """
 
 from ycnr_tpu_torch.data.synthetic import synthetic_ratings  # noqa: F401

@@ -23,7 +23,7 @@ import torch
 
 from ycnr_tpu_torch import resolve_device
 from ycnr_tpu_torch.models.base import MFState, rmse_padded
-from ycnr_tpu_torch.ops.fused_gram import fused_gram
+from ycnr_tpu_torch.ops.fused_gram import MAX_W, fused_gram
 from ycnr_tpu_torch.ops.gram import guarded_batched_solve
 from ycnr_tpu_torch.ops.row_gather import row_gather
 from ycnr_tpu_torch.ops.spd_solve import spd_solve
@@ -62,13 +62,16 @@ def device_bucketed(groups, dtype=torch.float32, device=None,
         for g in groups)
 
 
-def uses_fused(device, dtype, alpha, gather_bf16: bool) -> bool:
+def uses_fused(device, dtype, alpha, gather_bf16: bool, width: int) -> bool:
     """Whether ``phase_bucketed`` runs the fused branch for factors of
-    ``dtype`` on ``device``: ALS-WR (``alpha`` None) with bf16 gathers into
-    f32 factors on CUDA. Its layouts then hold bf16 ratings; every other
-    case reads them in the factors' dtype."""
+    ``dtype`` and rank ``width`` on ``device``: ALS-WR (``alpha`` None)
+    with bf16 gathers into f32 factors on CUDA, at a width the fused
+    gather -> Gram kernel takes (``fused_gram.MAX_W``). Its layouts then
+    hold bf16 ratings; every other case reads them in the factors' dtype
+    and runs the row gather, the einsums and K1, as the JAX package's
+    gather -> Gram is an XLA einsum at every width."""
     return (torch.device(device).type == "cuda" and alpha is None
-            and gather_bf16 and dtype == torch.float32)
+            and gather_bf16 and dtype == torch.float32 and width <= MAX_W)
 
 
 def bucket_solve_rows(Fg, rr, cnt, lam, alpha, base_gram, acc_t,
@@ -140,16 +143,17 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
     bytes) with Gram sums in E's dtype, ~1e-3 relative on the normal
     equations.
 
-    On CUDA, ALS-WR with bf16 gathers into an f32 E (the main path) runs
-    ``bucket_fused_rows``: the fused gather -> Gram kernel with the ridge
-    in its epilogue, then K1; its layouts hold bf16 ratings (``uses_fused``).
+    On CUDA, ALS-WR with bf16 gathers into an f32 E of rank <= 128 (the
+    main path) runs ``bucket_fused_rows``: the fused gather -> Gram kernel
+    with the ridge in its epilogue, then K1; its layouts hold bf16 ratings
+    (``uses_fused``).
     Every other case gathers with the row-gather kernel
     (``ops/row_gather.py``) and runs ``bucket_normal_eq`` and
     ``guarded_batched_solve``, with ratings in E's dtype. On the CPU every
     kernel is its plain version, which is this function's plain path.
     """
     F_g = F.to(torch.bfloat16) if gather_bf16 else F
-    fused = uses_fused(E.device, E.dtype, alpha, gather_bf16)
+    fused = uses_fused(E.device, E.dtype, alpha, gather_bf16, E.shape[1])
     want = torch.bfloat16 if fused else E.dtype
     for g in groups:
         if g.rating.dtype != want:

@@ -2,8 +2,10 @@
 the main path's shapes, over CUDA graphs (no host launch cost).
 
 K1 at n = 64 with B = 8, 256 and 20,000 systems (the bucketed epoch calls
-it with anything from 8 systems to tens of thousands); K2 at one serving
-block of 4,096 users x 26,744 items, rank 64, bf16 and f32 score buffers.
+it with anything from 8 systems to tens of thousands), and at n = 192 and
+256 (ranks above 128: the packed-triangle body) with the same batches; K2
+at one serving block of 4,096 users x 26,744 items, rank 64, bf16 and f32
+score buffers.
 Uses only the wrappers' stable signatures, so the same file times another
 checkout of the package when run with that checkout first on
 ``PYTHONPATH``: two versions are compared inside one call on one card.
@@ -23,7 +25,7 @@ from ycnr_tpu_torch.ops.fused_topn import SEG_LEN, fused_scores_cuda
 from ycnr_tpu_torch.ops.spd_solve import spd_solve_cuda
 from ycnr_tpu_torch.tools.probe_gather import device_name, graph_ms
 
-K1_N = 64
+K1_NS = (64, 192, 256)
 K1_BATCHES = (8, 256, 20_000)
 K2_USERS, K2_ITEMS, K2_RANK = 4096, 26_744, 64
 
@@ -70,12 +72,14 @@ def main(argv=None) -> list:
         out.append(kw)
         print(json.dumps(kw), flush=True)
 
-    for batch in K1_BATCHES:
-        A, b = spd_systems(batch, K1_N, gen, dev)
-        iters = 20 if batch <= 256 else 10
-        ms = min(graph_ms(lambda: spd_solve_cuda(A, b), iters)
-                 for _ in range(args.reps))
-        report(kernel="spd_solve", n=K1_N, batch=batch, ms=ms)
+    for n in K1_NS:
+        for batch in K1_BATCHES:
+            A, b = spd_systems(batch, n, gen, dev)
+            iters = 20 if batch <= 256 else 10 if n <= 64 else 3
+            ms = min(graph_ms(lambda: spd_solve_cuda(A, b), iters)
+                     for _ in range(args.reps))
+            report(kernel="spd_solve", n=n, batch=batch, ms=ms)
+            del A, b
     rows, V, bi, bits = scorer_inputs(gen, dev)
     for score_bf16 in (True, False):
         ms = min(graph_ms(lambda: fused_scores_cuda(rows, V, bi, bits,

@@ -33,8 +33,10 @@ from ycnr_tpu_torch.models.base import (
 from ycnr_tpu_torch.models.bpr import BPRTrainer, prepare_bpr_data
 from ycnr_tpu_torch.models.bucketed_phase import (
     als_epoch_fn,
+    als_epochs_bucketed,
     device_bucketed,
     ials_epoch_fn,
+    ials_epochs_bucketed,
     uses_fused,
 )
 from ycnr_tpu_torch.models.sgd import BiasedSGD, prepare_sgd_data
@@ -125,27 +127,33 @@ def _start_state(cfg: RunConfig, ds: Dataset, params, resume, warm_start,
                       mu=mu, dtype=dtype, device=device), 0, []
 
 
+def _bucketed_layouts(cfg: RunConfig, ds: Dataset, params, dtype, device):
+    """The user and item bucketed layouts of an ALS/iALS run on ``device``
+    (ratings in bf16 where the phase runs the fused branch)."""
+    bf16 = params.gather_dtype == "bfloat16"
+    alpha = None if cfg.algorithm == "als" else cfg.ials.alpha
+    rating_dtype = (torch.bfloat16
+                    if uses_fused(device, dtype, alpha, bf16, params.rank)
+                    else dtype)
+    return tuple(device_bucketed(build_bucketed(
+        a, b, ds.train_r, na, nb, cfg.data.chunk_len, params.rank,
+        max_groups=cfg.data.max_groups), dtype, device, rating_dtype)
+        for a, b, na, nb in ((ds.train_u, ds.train_i, ds.n_users, ds.n_items),
+                             (ds.train_i, ds.train_u, ds.n_items,
+                              ds.n_users)))
+
+
 def _epoch_fn(cfg: RunConfig, ds: Dataset, params, dtype, device):
     """``(state, epoch_idx) -> state`` for the configured algorithm, with
     its training data laid out on ``device``."""
     if cfg.algorithm in ("als", "ials"):
         # single-device fast path: bucketed (segsum-free) layout
         bf16 = params.gather_dtype == "bfloat16"
-        alpha = None if cfg.algorithm == "als" else cfg.ials.alpha
-        rating_dtype = (torch.bfloat16
-                        if uses_fused(device, dtype, alpha, bf16) else dtype)
-        dul = device_bucketed(build_bucketed(
-            ds.train_u, ds.train_i, ds.train_r, ds.n_users, ds.n_items,
-            cfg.data.chunk_len, params.rank, max_groups=cfg.data.max_groups),
-            dtype, device, rating_dtype)
-        dil = device_bucketed(build_bucketed(
-            ds.train_i, ds.train_u, ds.train_r, ds.n_items, ds.n_users,
-            cfg.data.chunk_len, params.rank, max_groups=cfg.data.max_groups),
-            dtype, device, rating_dtype)
+        dul, dil = _bucketed_layouts(cfg, ds, params, dtype, device)
         if cfg.algorithm == "als":
             fn = als_epoch_fn(dul, dil, cfg.als.lam, bf16)
         else:
-            fn = ials_epoch_fn(dul, dil, cfg.ials.lam, alpha, bf16)
+            fn = ials_epoch_fn(dul, dil, cfg.ials.lam, cfg.ials.alpha, bf16)
         return lambda state, epoch: fn(state)
     if cfg.algorithm == "bpr":
         trainer = BPRTrainer(cfg.bpr.lam, cfg.bpr.lr, cfg.bpr.lr_decay,
@@ -210,13 +218,20 @@ def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
     train_coo = (coo(pad_coo(ds.train_u, ds.train_i, ds.train_r, ds.n_users,
                              ds.n_items))
                  if cfg.log_train_rmse and cfg.algorithm != "bpr" else None)
-    epoch_fn = _epoch_fn(cfg, ds, params, dtype, device)
 
     def hit_rate():
         return hit_rate_at_n(state, ds.train_u, ds.train_i, ds.test_u,
                              ds.test_i, n=cfg.topn, max_users=512)
 
-    for epoch in range(start_epoch, params.epochs):
+    if cfg.fused_epochs > 1 and cfg.algorithm in ("als", "ials"):
+        state = _fused_epoch_blocks(cfg, ds, params, state, start_epoch,
+                                    history, dtype, device, test_coo,
+                                    train_coo, metrics, out)
+        epochs_done = params.epochs  # the blocks ran everything
+    else:
+        epochs_done = start_epoch
+        epoch_fn = _epoch_fn(cfg, ds, params, dtype, device)
+    for epoch in range(epochs_done, params.epochs):
         t0 = time.time()
         state = epoch_fn(state, epoch)
         if state.U.is_cuda:
@@ -263,6 +278,62 @@ def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
         _log_serving_metric(cfg, ds, state, metrics)
     return TrainResult(state=state, dataset=ds, rmse_history=history,
                        out_dir=out)
+
+
+def _fused_epoch_blocks(cfg, ds, params, state, start_epoch, history,
+                        dtype, device, test_coo, train_coo, metrics, out):
+    """ALS/iALS epochs in blocks of ``cfg.fused_epochs``, with the JAX
+    package's block boundaries (``ycnr_tpu/train/loop._fused_epoch_blocks``).
+
+    There a block is one device program; here it is
+    ``als_epochs_bucketed`` / ``ials_epochs_bucketed``, which run eagerly,
+    so nothing is fused, but what the reference does at a block's end is
+    behaviour and is kept: one record per epoch with ``epoch_s`` = block
+    wall / k and ``fused=k``, the iALS hit rate on a block's last epoch
+    only, early stopping and checkpoints at block ends. Appends to
+    ``history`` in place and returns the final state."""
+    dul, dil = _bucketed_layouts(cfg, ds, params, dtype, device)
+    bf16 = params.gather_dtype == "bfloat16"
+    epoch = start_epoch
+    while epoch < params.epochs:
+        k = min(cfg.fused_epochs, params.epochs - epoch)
+        t0 = time.time()
+        if cfg.algorithm == "als":
+            state, (rt, rq) = als_epochs_bucketed(
+                state, dul, dil, cfg.als.lam, k, test_coo, train_coo,
+                gather_bf16=bf16)
+        else:
+            state, (rt, rq) = ials_epochs_bucketed(
+                state, dul, dil, cfg.ials.lam, cfg.ials.alpha, k, test_coo,
+                train_coo, gather_bf16=bf16)
+        rt = rt.tolist()  # waits for the block
+        per_epoch_s = (time.time() - t0) / k
+        rq = rq.tolist() if train_coo is not None else None
+        for j in range(k):
+            history.append(float(rt[j]))
+            record = dict(epoch=epoch + j + 1,
+                          rmse_test=round(float(rt[j]), 6),
+                          epoch_s=round(per_epoch_s, 4), algo=cfg.algorithm,
+                          fused=k)
+            if rq is not None:
+                record["rmse_train"] = round(float(rq[j]), 6)
+            if cfg.algorithm == "ials" and j == k - 1:
+                # only the block's final state exists, as in the reference
+                record["hit_rate"] = round(hit_rate_at_n(
+                    state, ds.train_u, ds.train_i, ds.test_u, ds.test_i,
+                    n=cfg.topn, max_users=512), 4)
+            metrics.log(**record)
+        epoch += k
+        stop = _early_stop(cfg, history, metrics, epoch)
+        if out and cfg.checkpoint_every and (
+                epoch % cfg.checkpoint_every == 0
+                or epoch == params.epochs or stop):
+            save_checkpoint(os.path.join(out, "ckpt"), state, epoch,
+                            config=config_dict(cfg),
+                            extra=_ckpt_extra(history))
+        if stop:
+            break
+    return state
 
 
 def _time_serving(call, device):
