@@ -71,7 +71,20 @@ Run from the repository root:  python3 chip_smoke.py
     in-process ``train()`` and the reference trajectory, ``validate
     --hit-rate``, ``recommend --all --scorer fused`` (K2) against in-process
     ``recommend_all``, ``--user``, ``--rated`` (fold-in), ``export``, and a
-    three-lam ``tune`` whose entries equal standalone ``train()`` runs.
+    three-lam ``tune`` whose entries equal standalone ``train()`` runs;
+18. the serving processes at the same width: the CLI's ``train
+    --publish-shm`` segment bit-equal to its checkpoint (epoch 4),
+    ``publish``, then ``ShmRecommender`` + ``ShmRecCache`` +
+    ``ServingApp`` behind ``serve_tcp`` in process: ``precompute_all``
+    (K2), 8 clients x 256 single-user lines, 16 ``batch:`` lines of 1,024
+    users, 256 ``cold:`` lines (row gather + K1), ``predict:`` /
+    ``exclude:`` / ``similar:`` / ``popular`` / ``stats``, held to the
+    in-process engine (up to f32 ties; K2's own lists where the cache
+    holds them) and, for 256 users, a float64 host scoring; three
+    republishes under traffic (every answer one published state's list,
+    epochs monotone on each connection, then all at the last); a second
+    ``python -m ycnr_tpu_torch serve`` process on the same segment and
+    cache (the same lists, hits on the first process's entries).
 
 Every path runs with the kernels' launch counts set to 0 just before it,
 and each kernel must have launched on the paths that use it. Every failed
@@ -654,10 +667,11 @@ def phase_ingest():
     """The native parser, built here, against the Python parser on an
     ML-20M-format file with a header (host code; no kernel)."""
     from ycnr_tpu_torch.data import movielens, native
+    from ycnr_tpu_torch.native import get_ingest_lib
     from ycnr_tpu_torch.tools.bench_ingest import generate
 
     t0 = time.time()
-    check(native.load_library() is not None, "the native parser built")
+    check(get_ingest_lib() is not None, "the native parser built")
     log(f"build: native parser compiled and loaded in "
         f"{time.time() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as d:
@@ -700,10 +714,11 @@ def read_launches() -> dict:
             "guarded_batched_solve (calls)": gram.guarded_solves}
 
 
-def profile_breakdown(fn, what: str):
+def profile_breakdown(fn, what: str, by_kernel=None):
     """Run fn under torch.profiler and print the device time by kernel
     (kernel events only, so nothing is counted twice). Returns fn's result
-    and the device milliseconds."""
+    and the device milliseconds; fills ``by_kernel`` (name -> ms) when
+    given one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -724,6 +739,9 @@ def profile_breakdown(fn, what: str):
                    if getattr(e, "device_type", None) == DeviceType.CUDA
                    and dev_us(e) > 0), reverse=True)
     total = sum(r[0] for r in rows) / 1e3
+    if by_kernel is not None:
+        for us, _, key in rows:
+            by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3
     log(f"profile of {what}: {total:.3f} ms of device time by kernel")
     for us, count, key in rows[:12]:
         log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / total:5.1f}%  "
@@ -975,12 +993,13 @@ def shared_bucketed_layouts(known: dict):
 
 
 def phase_cli(dev, u, i, r, tu, ti, tr, su, si, sr, ul, il, smi: str,
-              tmp: str) -> dict:
+              tmp: str, shm_name: str) -> dict:
     """The command line, in process (ycnr_tpu_torch.cli.main) on the card at
     full width: a RatingsStore written once from the ML-20M-shaped arrays;
-    train --preset ml20m-als (rank 64, bf16: fused_gram + K1) with a config
-    file that gives the main path's split (test_fraction 0.05, seed 0) and
-    groups, held to an in-process train() and the reference trajectory;
+    train --preset ml20m-als --publish-shm (rank 64, bf16: fused_gram + K1)
+    with a config file that gives the main path's split (test_fraction
+    0.05, seed 0) and groups, held to an in-process train() and the
+    reference trajectory;
     validate --hit-rate; recommend --all --scorer fused (K2) against
     in-process recommend_all, --user, --rated (fold-in: K1); export; tune
     over three lams, each entry against a standalone train(). The
@@ -1029,7 +1048,8 @@ def phase_cli(dev, u, i, r, tu, ti, tr, su, si, sr, ul, il, smi: str,
         return lines, launches
 
     lines, ln = run("train", "train", "--preset", "ml20m-als", "--config",
-                    cfg_file, "--store", store, "--epochs", "4", "--out", out)
+                    cfg_file, "--store", store, "--epochs", "4", "--out", out,
+                    "--publish-shm", shm_name)
     check(ln["fused_gram"] > 0 and ln["spd_solve"] > 0,
           "cli train: fused_gram and K1 launched")
     run_dir = os.path.join(out, "ml20m-als")
@@ -1149,7 +1169,475 @@ def phase_cli(dev, u, i, r, tu, ti, tr, su, si, sr, ul, il, smi: str,
     check(man["config"]["als"]["lam"] == best["lam"] and bool(
         torch.isfinite(st.U).all()), "cli tune: best checkpoint loads")
     log(f"cli: kernel launches per command {per_cmd}; on {smi}")
-    return per_cmd
+    return {"per_cmd": per_cmd, "store": store, "ckpt": ckpt}
+
+
+SERVE_USERS = 512  # users whose lists are computed in process per state
+SERVE_F64_USERS = 256  # of them, held to a float64 host scoring
+SERVE_CLIENTS = 8
+SERVE_LINES = 256  # single-user lines per client
+SERVE_CACHE = 1 << 16  # ShmRecCache slots (the CLI's --shm-cache default)
+PREDICT_TOL = 5e-5 + 1e-5  # the reply's rounding to 4 decimals, plus f32
+
+
+def shm_free_bytes() -> int:
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def factor_segment_bytes(n_users: int, n_items: int, rank: int) -> int:
+    """The f32 payload of a factor segment (its header is a few bytes)."""
+    return 4 * ((n_users + 1) * (rank + 1) + (n_items + 1) * (rank + 1))
+
+
+class LineClient:
+    """One TCP connection speaking the server's line protocol."""
+
+    def __init__(self, addr):
+        import socket
+
+        self.sock = socket.create_connection(addr, timeout=120)
+        self.f = self.sock.makefile("rw")
+
+    def ask(self, line: str):
+        t0 = time.perf_counter()
+        self.f.write(line + "\n")
+        self.f.flush()
+        reply = json.loads(self.f.readline())
+        return reply, time.perf_counter() - t0
+
+    def close(self):
+        self.f.close()
+        self.sock.close()
+
+
+def same_up_to_ties(got, want, row, tol: float) -> bool:
+    """``ids_equal_up_to_ties`` for two id lists of one user, each ranked
+    by its float64 scores ``row``."""
+    got, want = np.asarray(got), np.asarray(want)
+    if len(got) != len(want):
+        return False
+    a = got[np.argsort(-row[got], kind="stable")]
+    b = want[np.argsort(-row[want], kind="stable")]
+    return ids_equal_up_to_ties([a], row[a][None], [b], row[b][None], tol)
+
+
+def phase_serve(dev, u, i, cli: dict, names: dict, smi: str,
+                tmp: str) -> dict:
+    """The serving processes on the card at the ML-20M shape, rank 64:
+    the CLI's train --publish-shm segment against its checkpoint; publish;
+    ShmRecommender + ShmRecCache + ServingApp + serve_tcp in process,
+    precompute (K2), traffic of every request kind over TCP held to
+    in-process and float64 scorings; three republishes under traffic
+    (monotone epochs per connection); a second serving process on the same
+    segment and cache. Returns the kernels' launches per part."""
+    import io
+    import select
+    import threading
+
+    from ycnr_tpu_torch.cli import main as cli_main
+    from ycnr_tpu_torch.eval.recommend import NEG_INF, recommend_all, \
+        top_popular
+    from ycnr_tpu_torch.native import get_shm_lib
+    from ycnr_tpu_torch.ops.layout import build_blocked_csr
+    from ycnr_tpu_torch.serve.cache import RecCache, ShmRecCache
+    from ycnr_tpu_torch.serve.engine import Recommender
+    from ycnr_tpu_torch.serve.server import ServingApp, serve_tcp
+    from ycnr_tpu_torch.serve.shm import (FactorShmReader, FactorShmWriter,
+                                          ShmRecommender)
+    from ycnr_tpu_torch.train.checkpoint import load_checkpoint
+
+    nu, ni, k, n = MAIN["n_users"], MAIN["n_items"], MAIN["rank"], 10
+    out = {}
+
+    # ---- 1. the train --publish-shm segment against the checkpoint -------
+    ckpt_state, man = load_checkpoint(cli["ckpt"], device=dev)
+    with FactorShmReader(names["train"]) as reader:
+        got, epoch = reader.read(device=dev)
+    check(epoch == 4 == man["epoch"], f"train --publish-shm: epoch {epoch}")
+    check(all(torch.equal(a, b) for a, b in zip(got, ckpt_state)),
+          "train --publish-shm: factors bit-equal to the checkpoint's")
+    ln = cli["per_cmd"]["train"]
+    check(ln["fused_gram"] > 0 and ln["spd_solve"] > 0,
+          "train --publish-shm: fused_gram and K1 launched")
+    out["train"] = ln
+    del got
+    get_shm_lib().ycnr_shm_unlink(names["train"].encode())
+
+    # ---- 2. publish ------------------------------------------------------
+    need = factor_segment_bytes(nu, ni, k) + SERVE_CACHE * (
+        24 + 4 * ShmRecCache.N_MAX)
+    free = shm_free_bytes()
+    log(f"serve: /dev/shm free {free:,} bytes; the segment and the cache "
+        f"need {need:,}")
+    check(free > need, "serve: /dev/shm has room for the factor segment "
+          "and the cache")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(["publish", "--ckpt", cli["ckpt"], "--shm", names["serve"]])
+    pub = json.loads(buf.getvalue().splitlines()[-1])
+    check(pub["epoch"] == 4, f"publish: epoch {pub['epoch']}")
+    with FactorShmReader(names["serve"]) as reader:
+        ms = []
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            reader.read(device=dev)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    out["read_ms"] = float(np.median(ms))
+    log(f"serve: FactorShmReader.read + host-to-device of "
+        f"{factor_segment_bytes(nu, ni, k) / 1e6:.1f} MB: median "
+        f"{out['read_ms']:.2f} ms of {[round(x, 2) for x in ms]}")
+
+    # ---- 3. the app in process --------------------------------------------
+    t0 = time.time()
+    cache = ShmRecCache(names["cache"], capacity=SERVE_CACHE)
+    rec = ShmRecommender(names["serve"], u, i, cache=cache, device=dev)
+    app = ServingApp(rec, n=n, fold_lam=MAIN["lam"], shm=True, source="shm",
+                     store_meta={"n_users": nu, "n_items": ni})
+    srv = serve_tcp(app, "127.0.0.1", 0)
+    addr = srv.server_address[:2]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    log(f"serve: app up in {time.time() - t0:.1f} s on {addr}")
+    proc = None
+    try:
+        sync()
+        reset_launches()
+        by_kernel = {}
+        t0 = time.time()
+        n_pre, _ = profile_breakdown(
+            lambda: rec.engine.precompute_all(n), "precompute_all (profiled)",
+            by_kernel)
+        sync()
+        out["precompute_s"] = time.time() - t0
+        out["precompute"] = read_launches()
+        out["k2_ms"] = sum(v for key, v in by_kernel.items()
+                           if "fused_scores" in key)
+        check(out["precompute"]["fused_scores"] > 0,
+              "serve precompute_all: K2 launched")
+        n_rated = int(np.unique(u).size)
+        check(n_pre == n_rated, f"precompute_all cached {n_pre} of {n_rated}")
+        log(f"serve: precompute_all {n_pre:,} users in "
+            f"{out['precompute_s']:.2f} s of wall (host layout build "
+            f"included), K2 {out['k2_ms']:.3f} ms of device time; launches "
+            f"{ {a: b for a, b in out['precompute'].items() if b} }")
+
+        # what the in-process engine serves, per published state
+        rng = np.random.default_rng(7)
+        users_all = np.unique(u)
+        sample = np.sort(rng.choice(users_all, SERVE_USERS, replace=False))
+        state0 = rec.engine.state
+        exp = Recommender(state0, u, i, cache=RecCache())
+        keep = np.isin(u, sample)
+        slay = build_blocked_csr(u[keep], i[keep], np.ones(int(keep.sum()),
+                                                          np.float32),
+                                 nu, ni, rank_hint=k)
+        su_, k2_items, k2_scores = recommend_all(state0, slay, n=n,
+                                                 method="fused")
+        check(su_.tolist() == sample.tolist(), "K2 lists of the sample")
+        k2 = {int(x): row[sc > NEG_INF / 2].tolist()
+              for x, row, sc in zip(su_, k2_items, k2_scores)}
+        sidx = torch.as_tensor(sample, device=dev)
+
+        def host_scores(st):
+            s = (st.U[sidx].double() @ st.V[:-1].double().T
+                 + st.bi[:-1].double() + st.bu[sidx].double()[:, None]
+                 + st.mu.double())
+            return s.cpu().numpy()
+
+        pos = {int(x): j for j, x in enumerate(sample)}
+        states = [state0]
+        for e in range(1, 4):  # three seeded further states: users permuted
+            perm = torch.as_tensor(np.random.default_rng(100 + e)
+                                   .permutation(nu), device=dev)
+            U = state0.U.clone()
+            U[:nu] = state0.U[perm]
+            states.append(state0._replace(U=U))
+        exact, rows64 = [], []
+        for st in states:
+            exp.update_state(st)
+            exact.append({int(x): lst.tolist() for x, lst in
+                          zip(sample, exp.recommend_batch(sample, n))})
+            rows64.append(host_scores(st))
+        exp.update_state(state0)
+        order = np.argsort(u, kind="stable")
+        us_, is_ = u[order], i[order]
+        lo = np.searchsorted(us_, sample.astype(us_.dtype))
+        hi = np.searchsorted(us_, sample.astype(us_.dtype), "right")
+        rated = {int(x): set(is_[a:b].tolist())
+                 for x, a, b in zip(sample, lo, hi)}
+
+        def epochs_of(x, items):
+            """The published states (0-3) whose in-process list this is."""
+            x = int(x)
+            j = pos[x]
+            return {e for e in range(4)
+                    if same_up_to_ties(items, exact[e][x], rows64[e][j],
+                                       TIE_TOL)
+                    or (e == 0 and items == k2[x])}
+
+        # -- single-user lines, 8 clients, through the micro-batcher ------
+        answers = [[] for _ in range(SERVE_CLIENTS)]
+
+        def single_client(c):
+            cl_ = LineClient(addr)
+            crng = np.random.default_rng(200 + c)
+            for x in crng.choice(sample, SERVE_LINES):
+                reply, _ = cl_.ask(str(int(x)))
+                answers[c].append((int(x), reply))
+            cl_.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=single_client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            check(not t.is_alive(), "serve: a single-user client finished")
+        single_s = time.perf_counter() - t0
+        stats = json.loads(app.handle("stats"))
+        n_lines = SERVE_CLIENTS * SERVE_LINES
+        errors = [a for c in answers for a in c if "error" in a[1]]
+        check(not errors, f"serve: single-user errors {errors[:3]}")
+        bad = [(x, r["items"]) for c in answers for x, r in c
+               if 0 not in epochs_of(x, r["items"])]
+        check(not bad, f"serve: single-user lists equal the in-process "
+              f"engine's up to ties ({len(bad)} not: {bad[:2]})")
+        check(all(not set(r["items"]) & rated[x] for c in answers
+                  for x, r in c), "serve: no rated item served")
+        lat = stats["latency"]
+        out["single"] = dict(rps=n_lines / single_s, **{
+            p: lat[p] for p in ("p50_ms", "p90_ms", "p99_ms")},
+            batches=stats["batches"],
+            batched=stats["batched_requests"])
+        log(f"serve: {n_lines} single-user lines from {SERVE_CLIENTS} "
+            f"clients in {single_s:.2f} s = {out['single']['rps']:,.0f} "
+            f"requests/s; p50 {lat['p50_ms']} p90 {lat['p90_ms']} p99 "
+            f"{lat['p99_ms']} ms (stats); micro-batches "
+            f"{stats['batches']} of {stats['batched_requests']} requests "
+            f"(the rest were cache hits)")
+
+        c0 = LineClient(addr)
+        # float64 host scoring of 256 of them
+        f64_bad = 0
+        for x in sample[:SERVE_F64_USERS]:
+            reply, _ = c0.ask(str(int(x)))
+            row = rows64[0][pos[int(x)]].copy()
+            row[list(rated[int(x)])] = -np.inf
+            want = np.argsort(-row, kind="stable")[:n]
+            got = reply["items"]
+            ok = same_up_to_ties(got, want, row, TIE_TOL)
+            if not ok and got == k2[int(x)]:
+                nth = row[want[-1]]  # K2: within one bf16 step of the 10th
+                ok = bool((row[got] >= nth - BF16_REL * abs(nth)
+                           - TIE_TOL).all())
+            f64_bad += not ok
+        check(f64_bad == 0, f"serve: {SERVE_F64_USERS} users' lists equal a "
+              f"float64 host scoring up to ties ({f64_bad} not)")
+
+        # -- batch: lines of 1,024 users ----------------------------------
+        batch_s = []
+        others = rng.choice(users_all, 16 * 512)
+        for b in range(16):
+            ids = np.r_[rng.permutation(sample), others[b * 512:
+                                                       (b + 1) * 512]]
+            reply, dt = c0.ask("batch:" + ",".join(str(int(x)) for x in ids))
+            batch_s.append(dt)
+            check("error" not in reply and len(reply["items"]) == len(ids),
+                  "serve: a batch line answered whole")
+            for x, items in zip(ids, reply["items"]):
+                if int(x) in pos:
+                    check(0 in epochs_of(x, items), f"serve batch: user {x}")
+                    check(not set(items) & rated[int(x)],
+                          f"serve batch: user {x} no rated item")
+        out["batch_ms"] = 1e3 * float(np.median(batch_s))
+        log(f"serve: 16 batch lines of 1,024 users: median "
+            f"{out['batch_ms']:.1f} ms a line (max "
+            f"{1e3 * max(batch_s):.1f})")
+
+        # -- cold: lines (fold-in: row_gather + K1) -----------------------
+        crng = np.random.default_rng(9)
+        colds = [(crng.choice(ni, 20, replace=False),
+                  crng.integers(1, 11, 20) / 2.0) for _ in range(256)]
+        sync()
+        reset_launches()
+        cold_replies, cold_s = [], []
+        for items, ratings in colds:
+            reply, dt = c0.ask("cold:" + ",".join(
+                f"{a}:{b}" for a, b in zip(items, ratings)))
+            cold_replies.append(reply)
+            cold_s.append(dt)
+        sync()
+        out["cold"] = read_launches()
+        check(out["cold"]["spd_solve"] > 0 and out["cold"]["row_gather"] > 0,
+              "serve cold: K1 and row_gather launched")
+        for (items, ratings), reply in zip(colds, cold_replies):
+            want = exp.recommend_cold(items, ratings, n=n, lam=MAIN["lam"])
+            check("error" not in reply and reply["items"] == want.tolist(),
+                  "serve cold: equal to in-process recommend_cold")
+            check(not set(reply["items"]) & set(items.tolist()),
+                  "serve cold: no rated item served")
+        out["cold_ms"] = (1e3 * float(np.percentile(cold_s, 50)),
+                          1e3 * float(np.percentile(cold_s, 99)))
+        log(f"serve: 256 cold lines of 20 ratings: p50 "
+            f"{out['cold_ms'][0]:.2f} ms, p99 {out['cold_ms'][1]:.2f} ms "
+            f"(client clock); launches "
+            f"{ {a: b for a, b in out['cold'].items() if b} }")
+
+        # -- predict:, exclude:, similar:, popular, stats ------------------
+        live = np.flatnonzero((state0.V[:-1] != 0).any(1).cpu().numpy())
+        for j in range(64):
+            x = int(sample[j])
+            items = crng.choice(ni, 5, replace=False)
+            reply, _ = c0.ask(f"predict:{x}:" + ",".join(map(str, items)))
+            want = rows64[0][pos[x]][items]
+            check("error" not in reply and np.allclose(
+                reply["scores"], want, rtol=0, atol=PREDICT_TOL),
+                f"serve predict: user {x} within {PREDICT_TOL} of float64")
+            ex = exact[0][x][:3]
+            reply, _ = c0.ask(f"exclude:{x}:" + ",".join(map(str, ex)))
+            check("error" not in reply and len(reply["items"]) == n
+                  and not set(reply["items"]) & set(ex)
+                  and not set(reply["items"]) & rated[x],
+                  f"serve exclude: user {x}")
+            q = int(crng.choice(live))
+            reply, _ = c0.ask(f"similar:{q}")
+            check("error" not in reply and len(reply["similar"]) == n
+                  and q not in reply["similar"], f"serve similar: item {q}")
+        reply, _ = c0.ask("popular")
+        check(reply["popular"] == top_popular(i, ni, n).tolist(),
+              "serve popular: the store's top counts")
+        reply, _ = c0.ask("stats")
+        check(reply["epoch"] == 4 and reply["source"] == "shm",
+              f"serve stats: {reply}")
+        c0.close()
+
+        # ---- 4. hot reload under traffic ----------------------------------
+        stop = threading.Event()
+        seen = [[] for _ in range(SERVE_CLIENTS)]
+
+        def reload_client(c):
+            cl_ = LineClient(addr)
+            crng_ = np.random.default_rng(300 + c)
+            while not stop.is_set():
+                x = int(crng_.choice(sample))
+                reply, _ = cl_.ask(str(x))
+                seen[c].append((time.perf_counter(), x, reply))
+            cl_.close()
+
+        threads = [threading.Thread(target=reload_client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        pub_t = {}
+        with FactorShmWriter(names["serve"], nu, ni, k) as writer:
+            for e in range(1, 4):
+                time.sleep(1.0)
+                writer.publish(states[e], 4 + e)
+                pub_t[e] = time.perf_counter()
+            time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+            check(not t.is_alive(), "serve reload: a client finished")
+        n_seen = sum(len(c) for c in seen)
+        errors = [r for c in seen for _, _, r in c if "error" in r]
+        check(not errors, f"serve reload: errors {errors[:3]}")
+        first = {}
+        for c in seen:
+            floor_ = 0
+            for t, x, r in c:
+                cand = epochs_of(x, r["items"])
+                check(bool(cand), f"serve reload: user {x}'s list is one "
+                      f"published state's")
+                up = [e for e in cand if e >= floor_]
+                check(bool(up), f"serve reload: epochs go back on a "
+                      f"connection (user {x}, {cand} after {floor_})")
+                floor_ = min(up)
+                if floor_ >= 1 and floor_ - 1 not in cand:
+                    first[floor_] = min(first.get(floor_, t), t)
+        out["reload_ms"] = [1e3 * (first[e] - pub_t[e]) if e in first
+                            else None for e in (1, 2, 3)]
+        log(f"serve reload: {n_seen} single-user answers over three "
+            f"republishes, every one a published state's list, epochs "
+            f"monotone on each of {SERVE_CLIENTS} connections; publish -> "
+            f"first answer at the new epoch "
+            f"{[None if x is None else round(x, 2) for x in out['reload_ms']]}"
+            f" ms")
+        check(all(x is not None for x in out["reload_ms"]),
+              "serve reload: every new epoch was served")
+        c1 = LineClient(addr)
+        settled = {}
+        for x in sample:
+            reply, _ = c1.ask(str(int(x)))
+            settled[int(x)] = reply["items"]
+            check(3 in epochs_of(x, reply["items"]),
+                  f"serve reload: user {x} at the last epoch")
+        reply, _ = c1.ask("stats")
+        check(reply["epoch"] == 7, f"serve reload: stats epoch {reply}")
+        c1.close()
+
+        # ---- 5. a second serving process on the same segment and cache ----
+        here = os.path.dirname(os.path.abspath(__file__))
+        err = open(os.path.join(tmp, "serve.err"), "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ycnr_tpu_torch", "serve", "--shm",
+             names["serve"], "--shm-cache", names["cache"], "--store",
+             cli["store"], "-n", str(n), "--listen", "127.0.0.1:0"],
+            stdout=subprocess.PIPE, stderr=err, text=True, cwd=here,
+            env=dict(os.environ, PYTHONPATH=here))
+        t0 = time.time()
+        ready_ok = select.select([proc.stdout], [], [], 300)[0]
+        line = proc.stdout.readline() if ready_ok else ""
+        if not line.startswith("{"):
+            err.seek(0)
+            log(f"serve subprocess: {err.read()[-3000:]}")
+        check(line.startswith("{"), "serve subprocess: ready line")
+        ready = json.loads(line)
+        log(f"serve subprocess ready in {time.time() - t0:.1f} s: {ready}")
+        host, _, port = ready["listen"].rpartition(":")
+        c2 = LineClient((host, int(port)))
+        diff = 0
+        for x in sample:
+            reply, _ = c2.ask(str(int(x)))
+            diff += not same_up_to_ties(reply["items"], settled[int(x)],
+                                        rows64[3][pos[int(x)]], TIE_TOL)
+        reply, _ = c2.ask("stats")
+        c2.close()
+        hits = SERVE_USERS - reply["batched_requests"]
+        log(f"serve subprocess: {SERVE_USERS} users, lists equal to the "
+            f"in-process app's up to ties: {SERVE_USERS - diff}; stats "
+            f"epoch {reply['epoch']}, {hits} answered from the shared cache "
+            f"(requests not micro-batched)")
+        check(diff == 0, "serve subprocess: the in-process app's lists")
+        check(reply["epoch"] == 7, "serve subprocess: epoch 7")
+        check(hits > 0, "serve subprocess: cache hits on the in-process "
+              "app's entries")
+        out["subprocess_hits"] = hits
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        srv.shutdown()
+        srv.server_close()
+        app.close()
+        rec.close()
+        cache.close()
+    s = out["single"]
+    log(f"serve numbers on {smi}: {s['rps']:,.0f} single-user requests/s "
+        f"with {SERVE_CLIENTS} clients, p50 {s['p50_ms']} p90 "
+        f"{s['p90_ms']} p99 {s['p99_ms']} ms; batch line of 1,024 "
+        f"{out['batch_ms']:.1f} ms; cold p50 {out['cold_ms'][0]:.2f} p99 "
+        f"{out['cold_ms'][1]:.2f} ms; reload {out['reload_ms']} ms; "
+        f"read + host-to-device {out['read_ms']:.2f} ms; precompute "
+        f"{out['precompute_s']:.2f} s, K2 {out['k2_ms']:.3f} ms")
+    return out
 
 
 def ml1m_sgd_config(method: str, out_dir: str):
@@ -1901,9 +2389,26 @@ def run(dev):
     wide = phase_rank192(dev, tu, ti, tr, su, si, sr, smi)
     sync()
 
-    # ---- the command line, in process, at full width ---------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_cli(dev, u, i, r, tu, ti, tr, su, si, sr, ul, il, smi, tmp)
+    # ---- the command line, in process, at full width, then serving -------
+    from ycnr_tpu_torch.native import get_cache_lib, get_shm_lib
+
+    names = {tag: f"/ycnr_smoke_{os.getpid()}_{tag}"
+             for tag in ("train", "serve", "cache")}
+    free = shm_free_bytes()
+    log(f"/dev/shm: {free:,} bytes free before any segment; the train "
+        f"segment needs {factor_segment_bytes(n_users, n_items, rank):,}")
+    check(free > factor_segment_bytes(n_users, n_items, rank),
+          "/dev/shm has room for the train --publish-shm segment")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli = phase_cli(dev, u, i, r, tu, ti, tr, su, si, sr, ul, il,
+                            smi, tmp, names["train"])
+            sync()
+            serve = phase_serve(dev, u, i, cli, names, smi, tmp)
+    finally:  # a name already unlinked is a no-op
+        get_shm_lib().ycnr_shm_unlink(names["train"].encode())
+        get_shm_lib().ycnr_shm_unlink(names["serve"].encode())
+        get_cache_lib().ycnr_cache_unlink(names["cache"].encode())
     sync()
 
     # ---- SGD (ml1m-sgd) and BPR (ml20m-bpr) through train() --------------
@@ -1945,14 +2450,16 @@ def run(dev):
         {"name": "spd_solve", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/spd_solve.cu",
          "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
-         "launches": launches["spd_solve"],
+         "launches": launches["spd_solve"] + serve["train"]["spd_solve"]
+         + serve["cold"]["spd_solve"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
         {"name": "fused_scores", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/fused_topn.cu",
          "replaces": "ycnr_tpu/ops/pallas_topn.py:100",
-         "launches": launches["fused_scores"] + bpr["k2_launches"],
+         "launches": launches["fused_scores"] + bpr["k2_launches"]
+         + serve["precompute"]["fused_scores"],
          "max_abs_err": max(k2["bf16"]["max_abs_err"],
                             k2["f32"]["max_abs_err"]),
          "ms": k2["bf16"]["ms"], "plain_ms": k2["bf16"]["plain_ms"],
@@ -1965,7 +2472,7 @@ def run(dev):
                      "tools/bench_pallas_gather.py:184",
          "launches": blocked_launches["row_gather"]
          + fold_launches["row_gather"] + online["add"]["row_gather"]
-         + online["cold"]["row_gather"],
+         + online["cold"]["row_gather"] + serve["cold"]["row_gather"],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]},
@@ -1995,7 +2502,7 @@ def run(dev):
         {"name": "fused_gram", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/fused_gram.cu",
          "replaces": "tools/probe_gather.py:207",
-         "launches": launches["fused_gram"],
+         "launches": launches["fused_gram"] + serve["train"]["fused_gram"],
          "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
          "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
          "bound_by": gram["bound_by"], "library_ms": None},

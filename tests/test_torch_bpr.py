@@ -281,8 +281,9 @@ def test_native_bit_packer_equals_the_numpy_path(monkeypatch):
     (built here with g++); with the library absent it packs with NumPy. The
     same words either way, and ids out of range raise from both."""
     from ycnr_tpu_torch.data import native
+    from ycnr_tpu_torch.native import get_ingest_lib
 
-    assert native.load_library() is not None
+    assert get_ingest_lib() is not None
     rng = np.random.default_rng(6)
     u = np.r_[rng.integers(0, 300, 5000), [299, 0]]
     i = np.r_[rng.integers(0, 1000, 5000), [31, 999]]

@@ -1,22 +1,36 @@
 """The port's command line (``python -m ycnr_tpu_torch``) on the CPU: the
 cases of ``tests/test_cli.py`` for the commands the port has (all but the
-out-of-core and the shm / serve ones), each held to ``ycnr_tpu.cli.main``
-on the same store. The JAX package runs with ``--platform cpu``, the port
-with ``--device cpu``. Runs train in float64 (a config file), so the two
-packages' numbers agree to the printed digit; a checkpoint written by one
-package's ``train`` is read by the other's ``validate``, ``recommend`` and
-``export``. The commands not ported yet stop with one line naming their
-ROADMAP item."""
+out-of-core ones), each held to ``ycnr_tpu.cli.main`` on the same store.
+The JAX package runs with ``--platform cpu``, the port with ``--device
+cpu``. Runs train in float64 (a config file), so the two packages' numbers
+agree to the printed digit; a checkpoint written by one package's
+``train`` is read by the other's ``validate``, ``recommend``, ``serve`` and
+``export``. Shared-memory segments hold float32: ``publish`` /
+``recommend --shm`` are held to ``recommend --ckpt`` on a float32
+checkpoint. Where the JAX package needs its shm libraries, they are built
+from its sources into a temporary directory. The commands not ported yet
+stop with one line naming their ROADMAP item."""
 
+import ctypes
+import io
 import json
 import os
+import socket
+import subprocess
+import sys
+import uuid
 
 import numpy as np
 import pytest
 import torch
 
+from ycnr_tpu import native as jnative
 from ycnr_tpu.cli import main as jmain
 from ycnr_tpu_torch.cli import main as tmain
+from ycnr_tpu_torch.native import get_cache_lib, get_shm_lib
+from test_torch_shm import build_jax_library
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 torch.set_num_threads(1)
 
@@ -374,18 +388,14 @@ def test_train_fused_epochs_flag(trained, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--ckpt", "c", "--store", "s"], "item 4"),
-    (["publish", "--ckpt", "c", "--shm", "/x"], "item 4"),
-    (["recommend", "--shm", "/x", "--store", "s", "--user", "1"], "item 4"),
     (["train", "--ooc"], "items 5-6"),
-    (["train", "--publish-shm", "/x"], "item 4"),
     (["train", "--shards", "2"], "item 7"),
     (["train", "--distributed"], "item 7"),
     (["tune", "--lams", "0.1", "--shards", "4"], "item 7"),
 ])
 def test_unported_commands_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit) as e:
-        tmain(argv + ["--device", "cpu"] if argv[0] != "publish" else argv)
+        tmain(argv + ["--device", "cpu"])
     assert "not ported yet" in str(e.value) and item in str(e.value)
     assert "\n" not in str(e.value)
 
@@ -394,10 +404,14 @@ def test_unported_commands_name_their_roadmap_item(argv, item):
     ["train", "--epochs", "1"],
     ["validate", "--ckpt", "c", "--store", "s"],
     ["export", "--ckpt", "c", "--out", "x.npz"],
+    ["serve", "--ckpt", "c", "--store", "s"],
+    ["serve", "--shm", "/x", "--store", "s", "--listen", "127.0.0.1:0"],
+    ["publish", "--ckpt", "c", "--shm", "/x"],
 ])
-def test_default_device_needs_cuda(argv):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the default runs there")
+def test_default_device_needs_cuda(argv, monkeypatch):
+    """Without --device the commands run on the card; with none they stop
+    with a message and never serve or train on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         tmain(argv)
 
@@ -464,3 +478,182 @@ def test_cli_tune_saves_best_checkpoint(tmp_path, capsys):
             store, "--user", "3", "-n", "4"]
     rec = trun(capsys, *argv)[-1]
     assert len(rec["items"]) == 4 and rec == jrun(capsys, *argv)[-1]
+
+
+# --- publish, recommend --shm, serve, train --publish-shm -------------------
+
+@pytest.fixture(scope="module")
+def jax_lib_paths(tmp_path_factory):
+    d = tmp_path_factory.mktemp("jaxlibs")
+    return {stem: build_jax_library(d, stem)
+            for stem in ("shm_store", "shm_cache")}
+
+
+@pytest.fixture
+def jax_libs(jax_lib_paths, monkeypatch):
+    """The JAX package's loaders serving the libraries built above (never
+    its shared build)."""
+    for stem, path in jax_lib_paths.items():
+        monkeypatch.setitem(jnative._libs, stem, ctypes.CDLL(path))
+
+
+@pytest.fixture
+def shm_names():
+    names = [f"/ycnr_tcli_{uuid.uuid4().hex[:10]}{k}" for k in "abc"]
+    yield names
+    for name in names:
+        get_shm_lib().ycnr_shm_unlink(name.encode())
+        get_cache_lib().ycnr_cache_unlink(name.encode())
+
+
+@pytest.fixture(scope="module")
+def f32_ckpt(trained):
+    """A float32 ALS checkpoint on the shared store (what a segment holds,
+    so --shm and --ckpt serve the same bits)."""
+    out = trained["root"] / "f32"
+    tmain(["train", "--preset", "ml100k-als", "--store", trained["store"],
+           "--epochs", "2", "--rank", "6", "--out", str(out), "--device",
+           "cpu"])
+    return str(out / "ml100k-als" / "ckpt")
+
+
+_SHM_MODES = {
+    "user": ["--user", "0", "3", "-n", "5"],
+    "predict": ["--user", "3", "7", "--predict", "1,2,5"],
+    "exclude": ["--user", "3", "-n", "5", "--exclude", "0,1,2,3,4,5"],
+    "all": ["--all", "-n", "5"],
+    "rated": ["--rated", "2:5.0,7:4.0", "-n", "5"],
+    "similar": ["--similar", "4", "9", "-n", "4"],
+}
+
+
+def _same_up_to_rounding(a, b):
+    """Equal JSON lines, scores within the printed rounding (two float32
+    sums in different orders)."""
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert {k: v for k, v in x.items() if k != "scores"} == \
+            {k: v for k, v in y.items() if k != "scores"}
+        np.testing.assert_allclose(x.get("scores", []), y.get("scores", []),
+                                   rtol=0, atol=1.01e-4)
+
+
+@pytest.mark.parametrize("mode", sorted(_SHM_MODES))
+def test_publish_then_recommend_shm(trained, f32_ckpt, capsys, shm_names,
+                                    jax_libs, mode):
+    """publish prints the checkpoint's epoch; recommend --shm in every
+    mode equals recommend --ckpt of the same checkpoint, and the JAX
+    package's recommend --shm on its own publish of that checkpoint."""
+    tname, jname, _ = shm_names
+    out = trun(capsys, "publish", "--ckpt", f32_ckpt, "--shm", tname)[-1]
+    assert out == {"shm": tname, "ckpt": f32_ckpt, "epoch": 2}
+    assert jrun(capsys, "publish", "--ckpt", f32_ckpt, "--shm", jname,
+                platform=False)[-1]["epoch"] == 2
+    argv = ["recommend", "--store", trained["store"], *_SHM_MODES[mode]]
+    via_shm = trun(capsys, *argv, "--shm", tname)
+    assert via_shm and all("error" not in x for x in via_shm)
+    assert via_shm == trun(capsys, *argv, "--ckpt", f32_ckpt)
+    _same_up_to_rounding(via_shm, jrun(capsys, *argv, "--shm", jname))
+
+
+def _serve_lines(capsys, run, argv, lines):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("sys.stdin", io.StringIO("".join(f"{x}\n"
+                                                    for x in lines)))
+        return run(capsys, "serve", *argv)
+
+
+_SERVE_REQUESTS = ["stats", "1", "batch:1,2,40", "cold:2:5.0,7:4.0",
+                   "predict:1:2,5", "exclude:1:0,1,2,3", "similar:3",
+                   "similar:3:dot", "popular", "nonsense", "99999"]
+
+
+def _strip_stats(lines):
+    keep = ("event", "epoch", "users", "items", "n", "source")
+    return [{k: v for k, v in x.items() if k in keep}
+            if x.get("event") == "stats" else
+            ({"error": True} if "error" in x else x) for x in lines]
+
+
+@pytest.mark.parametrize("ckpt", ["t", "j"])
+def test_serve_stdin_matches_jax(trained, capsys, ckpt):
+    """serve: the ready line and one answer a request line, equal to the
+    JAX package's serve on the same store and checkpoint (stats: its
+    epoch, dims and source)."""
+    argv = ["--ckpt", trained[ckpt], "--store", trained["store"], "-n", "4"]
+    t = _serve_lines(capsys, trun, argv, _SERVE_REQUESTS)
+    j = _serve_lines(capsys, jrun, argv, _SERVE_REQUESTS)
+    assert t[0] == {"event": "ready", "users": 120, "items": 60}
+    assert len(t) == len(_SERVE_REQUESTS) + 1
+    assert t[1]["epoch"] == 3 and t[1]["source"] == "ckpt"
+    assert "error" in t[-2] and "error" in t[-1]
+    assert _strip_stats(t) == _strip_stats(j)
+
+
+def test_serve_listen_matches_jax(trained, capsys):
+    """serve --listen: the same protocol over TCP from a second process,
+    the same answers as the JAX package's serve over stdin."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ycnr_tpu_torch", "serve", "--ckpt",
+         trained["t"], "--store", trained["store"], "-n", "4", "--device",
+         "cpu", "--listen", "127.0.0.1:0"],
+        stdout=subprocess.PIPE, text=True, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    try:
+        ready = json.loads(proc.stdout.readline())
+        port = int(ready["listen"].rsplit(":", 1)[1])
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+            s.sendall("".join(f"{x}\n" for x in _SERVE_REQUESTS).encode())
+            s.shutdown(socket.SHUT_WR)
+            got = [json.loads(x) for x in s.makefile().read().splitlines()]
+    finally:
+        proc.kill()
+        proc.wait()
+    want = _serve_lines(capsys, jrun, ["--ckpt", trained["t"], "--store",
+                                       trained["store"], "-n", "4"],
+                        _SERVE_REQUESTS)
+    assert {k: v for k, v in ready.items() if k != "listen"} == want[0]
+    assert _strip_stats(got) == _strip_stats(want[1:])
+
+
+def test_serve_shm_hot_reload_and_shared_cache(trained, f32_ckpt, capsys,
+                                               shm_names, jax_libs):
+    """serve --shm --shm-cache: stats report the published epoch and the
+    shm source; a computed list lands in the shared cache, where a second
+    serve (and the JAX package's ShmRecCache) finds it; --precompute fills
+    the cache for every rated user."""
+    from ycnr_tpu.serve.cache import ShmRecCache as JCache
+
+    name, cache, _ = shm_names
+    trun(capsys, "publish", "--ckpt", f32_ckpt, "--shm", name)
+    argv = ["--shm", name, "--store", trained["store"], "-n", "4",
+            "--shm-cache", cache]
+    first = _serve_lines(capsys, trun, argv, ["stats", "1"])
+    assert first[1]["epoch"] == 2 and first[1]["source"] == "shm"
+    with JCache(cache, epoch=3) as c:  # entries carry epoch + 1
+        hit = c.get((1, 4))
+    assert hit is not None and hit.tolist() == first[2]["items"]
+    again = _serve_lines(capsys, trun, argv + ["--precompute"], ["1"])
+    assert again[0]["precomputed"] == 120
+    assert again[1] == first[2]
+
+
+def test_train_publish_shm_matches_jax(trained, tmp_path, capsys, shm_names,
+                                       jax_libs):
+    """train --publish-shm leaves the last epoch's factors in the segment,
+    as the JAX package's train --publish-shm does from the same float64
+    run (float32 in the segment)."""
+    from ycnr_tpu_torch.serve.shm import FactorShmReader
+
+    tname, jname, _ = shm_names
+    argv = ["train", "--preset", "ml100k-als", "--store", trained["store"],
+            "--epochs", "2", "--rank", "5", "--config", _f64(tmp_path)]
+    trun(capsys, *argv, "--out", str(tmp_path / "t"), "--publish-shm", tname)
+    jrun(capsys, *argv, "--out", str(tmp_path / "j"), "--publish-shm", jname)
+    with FactorShmReader(tname) as r:
+        got, e = r.read(device="cpu")
+    with FactorShmReader(jname) as r:
+        want, je = r.read(device="cpu")
+    assert e == je == 2
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)

@@ -577,3 +577,90 @@ def test_cli_train_and_recommend_all_fused_on_the_card(dev, tmp_path,
     for x, want in zip(rows, items):
         assert x["items"] == want.tolist()
         assert not set(x["items"]) & set(i[u == x["user"]].tolist())
+
+
+def _shm_serving_setup(dev, name, n_users=300, n_items=3000, rank=16):
+    """A state published into a fresh segment, read back onto the card
+    through ShmRecommender with a fresh ShmRecCache."""
+    from ycnr_tpu_torch.data.synthetic import synthetic_ratings
+    from ycnr_tpu_torch.models.base import init_state
+    from ycnr_tpu_torch.serve.cache import ShmRecCache
+    from ycnr_tpu_torch.serve.shm import FactorShmWriter, ShmRecommender
+
+    u, i, _ = synthetic_ratings(n_users, n_items, 20_000, true_rank=4,
+                                seed=2)
+    w = FactorShmWriter(name, n_users, n_items, rank)
+    w.publish(init_state(n_users, n_items, rank, seed=1, device=dev), 3)
+    cache = ShmRecCache(name + "c", 1 << 12)
+    rec = ShmRecommender(name, u, i, cache=cache)  # the default: the card
+    return w, cache, rec, u, i
+
+
+def _shm_teardown(w, cache, rec):
+    rec.close()
+    cache.close()
+    cache.unlink()
+    w.close()
+    w.unlink()
+
+
+def test_shm_reader_lands_every_tensor_on_the_card(dev):
+    import uuid
+
+    from ycnr_tpu_torch.models.base import init_state
+    from ycnr_tpu_torch.serve.shm import FactorShmReader, FactorShmWriter
+
+    name = f"/ycnr_tcuda_{uuid.uuid4().hex[:10]}"
+    state = init_state(50, 40, 8, seed=4, mu=1.5, device=dev)
+    with FactorShmWriter(name, 50, 40, 8) as w:
+        w.publish(state, 7)
+        with FactorShmReader(name) as r:
+            got, e = r.read()  # the default device: the card
+        w.unlink()
+    assert e == 7
+    for a, b in zip(got, state):
+        assert a.is_cuda and a.dtype == torch.float32
+        assert torch.equal(a, b)
+
+
+def test_precompute_through_the_shm_cache_launches_k2(dev):
+    """ShmRecommender on the card: precompute_all fills the shared cache
+    through K2, and a request is then a cache hit equal to scoring."""
+    import uuid
+
+    w, cache, rec, u, i = _shm_serving_setup(
+        dev, f"/ycnr_tcuda_{uuid.uuid4().hex[:10]}")
+    try:
+        k0 = ft.launches
+        n = rec.engine.precompute_all(10)
+        torch.cuda.synchronize()
+        assert ft.launches > k0 and n == len(np.unique(u))
+        hits = cache.hits
+        got = rec.recommend(int(u[0]), 10)
+        assert cache.hits == hits + 1
+        assert not set(got.tolist()) & set(i[u == u[0]].tolist())
+    finally:
+        _shm_teardown(w, cache, rec)
+
+
+def test_cold_request_launches_k1_and_row_gather(dev):
+    """A cold: line through ServingApp on the card folds the user in with
+    row_gather + K1 and serves none of the items it rated."""
+    import json
+    import uuid
+
+    from ycnr_tpu_torch.serve.server import ServingApp
+
+    w, cache, rec, u, i = _shm_serving_setup(
+        dev, f"/ycnr_tcuda_{uuid.uuid4().hex[:10]}")
+    app = ServingApp(rec, n=10, shm=True)
+    try:
+        s0, g0 = sp.launches, rg.launches
+        out = json.loads(app.handle("cold:3:5.0,17:4.0,250:1.0"))
+        torch.cuda.synchronize()
+        assert sp.launches > s0 and rg.launches > g0
+        assert len(out["items"]) == 10 and not {3, 17, 250} & set(
+            out["items"])
+    finally:
+        app.close()
+        _shm_teardown(w, cache, rec)

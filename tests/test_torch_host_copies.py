@@ -2,17 +2,21 @@
 arrays as the originals, bit for bit: synthetic ratings, the splits, the
 MovieLens parser, the dataset loader, the bucketed and blocked layouts,
 ``pad_coo``, the run configs (``asdict``, which a checkpoint manifest
-carries across the packages), the NumPy oracle, the metrics logger and the
-in-process recommendation cache (the same calls, the same answers)."""
+carries across the packages), the NumPy oracle, the metrics logger, the
+in-process and the shared-memory recommendation caches (the same calls,
+the same answers), and the native shared-memory sources (byte for byte)."""
 
+import ctypes
 import dataclasses
 import os
 import tempfile
+import uuid
 
 import numpy as np
 import pytest
 
 from ycnr_tpu import config as jconfig
+from ycnr_tpu import native as jnative
 from ycnr_tpu.data import dataset as jdataset
 from ycnr_tpu.data import movielens as jmovielens
 from ycnr_tpu.data import split as jsplit
@@ -34,6 +38,7 @@ from ycnr_tpu_torch.ops import layout as tlayout
 from ycnr_tpu_torch.oracle import numpy_mf as toracle
 from ycnr_tpu_torch.serve import cache as tcache
 from ycnr_tpu_torch.train import metrics as tmetrics
+from test_torch_shm import build_jax_library
 
 
 def _coo(seed=3, n_users=90, n_items=70, n=1500):
@@ -271,3 +276,66 @@ def test_ratings_store_reads_across_the_packages(tmp_path, writer, reader):
     assert again.n_rows == want[1] + 1
     assert again.read_all()[2][-1] == np.float32(3.5)
     assert again.read_ts()[-1] == 99
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("stem", ["shm_store", "shm_cache"])
+def test_native_source_is_the_jax_packages_byte_for_byte(stem):
+    """A segment written by either package is read by the other, so the
+    port's shm sources are the JAX package's, unchanged."""
+    with open(os.path.join(REPO, "ycnr_tpu", "native", f"{stem}.cc"),
+              "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "ycnr_tpu_torch", "csrc", f"{stem}.cc"),
+              "rb") as f:
+        assert f.read() == want
+
+
+def _shm_cache_script(m, name):
+    """One sequence of calls against ShmRecCache: every key namespace,
+    epochs, tombstones, put_if, the width limit, the key range."""
+    out = []
+    with m.ShmRecCache(name, 1 << 12, epoch=2) as c:
+        for k in [(1, 10), (2, 5), ("sim", 3, 10, "cosine"),
+                  ("sim", 3, 10, "dot"), ("pop", 0, 10, "count")]:
+            out.append(c.put(k, np.arange(len(str(k)), dtype=np.int64)))
+        out += [c.get((1, 10)), c.get((1, 9)), c.get(("sim", 3, 10, "dot")),
+                c.epoch, c.stats()]
+        c.invalidate(1)
+        c.invalidate_popular()
+        out += [c.get((1, 10)), c.get(("pop", 0, 10, "count")),
+                c.get((2, 5))]
+        out += [c.put_if((4, 10), [9, 8], lambda: False), c.get((4, 10)),
+                c.put_if((4, 10), [9, 8], lambda: True), c.get((4, 10)),
+                c.put((5, c.N_MAX + 1), np.arange(c.N_MAX + 1)),
+                c.get((5, c.N_MAX + 1))]
+        c.invalidate()
+        out += [c.epoch, c.get((2, 5))]
+        c.put((2, 5), [7])
+        c.set_epoch(9)
+        out += [c.epoch, c.get((2, 5))]
+        for bad in ((1 << 40, 10), ("sim", 1 << 40, 5, "cosine")):
+            try:
+                c.put(bad, [1])
+            except ValueError as e:
+                out.append(str(e))
+        for bad in ((1, 10, 3), ("sim", 1, 5, "jaccard")):
+            try:
+                c.get(bad)
+            except (KeyError, ValueError) as e:
+                out.append(type(e).__name__)
+        out += [c.hits, c.misses, c.stats()]
+        c.unlink()
+    return out
+
+
+def test_shm_cache_matches_the_jax_package(tmp_path, monkeypatch):
+    """The port's ShmRecCache and the JAX package's (its library built from
+    its own source here) answer one sequence of calls alike."""
+    lib = build_jax_library(tmp_path, "shm_cache")
+    monkeypatch.setitem(jnative._libs, "shm_cache", ctypes.CDLL(lib))
+    name = f"/ycnr_thc_{uuid.uuid4().hex[:10]}"
+    _assert_same(_shm_cache_script(tcache, name + "t"),
+                 _shm_cache_script(jcache, name + "j"), "shm_cache")

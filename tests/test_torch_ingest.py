@@ -14,6 +14,7 @@ import pytest
 
 from ycnr_tpu.data import movielens as jml
 from ycnr_tpu_torch.data import movielens as tml
+from ycnr_tpu_torch import native as loader
 from ycnr_tpu_torch.data import native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,7 +68,7 @@ FILES = {
 @pytest.fixture(scope="module")
 def lib():
     """The port's parser library, built here if it is not yet."""
-    built = native.load_library()
+    built = loader.get_ingest_lib()
     assert built is not None, "g++ not found: the native parser cannot build"
     return built
 
@@ -151,8 +152,9 @@ def test_python_parser_serves_a_host_without_gxx(tmp_path, monkeypatch):
 
 _BUILD_AND_PARSE = textwrap.dedent("""
     import sys
+    from ycnr_tpu_torch import native as loader
     from ycnr_tpu_torch.data import native
-    native.BUILD_DIR = sys.argv[1]
+    loader.BUILD_DIR = sys.argv[1]
     got = native.parse_ratings_native(sys.argv[2], ",", want_ts=True)
     print(len(got[0]), int(got[0].sum()), int(got[3].sum()))
 """)
@@ -178,9 +180,10 @@ def test_six_processes_building_at_once_all_load(tmp_path):
 
 
 def test_build_command_and_library_name():
-    cmd = native.gxx_command("g++", "a.cc", "lib.so")
+    cmd = loader.gxx_command("g++", "a.cc", "lib.so")
     assert cmd[0] == "g++" and "-shared" in cmd and "-fPIC" in cmd
     assert "-march=native" not in cmd
-    assert os.path.basename(native.library_path()).startswith(
+    assert os.path.basename(loader.library_path("ingest")).startswith(
         "libycnr_ingest-")
-    assert os.path.dirname(native.library_path()) == native.BUILD_DIR
+    assert os.path.dirname(loader.library_path("ingest")) == \
+        loader.BUILD_DIR

@@ -58,9 +58,9 @@ def test_train_rmse_history_matches_jax(tmp_path, algo):
 
 def test_train_refuses_what_is_not_ported():
     """Every algorithm trains now; what is still missing (a mesh,
-    out-of-core, shm publishing, orbax checkpoints) raises."""
+    out-of-core, orbax checkpoints) raises."""
     for kw in (dict(mesh=MeshConfig(n_shards=2)), dict(ooc=True),
-               dict(publish_shm="seg"), dict(checkpoint_backend="orbax")):
+               dict(checkpoint_backend="orbax")):
         for algo in ("als", "sgd", "bpr"):
             with pytest.raises(NotImplementedError):
                 ttrain(dataclasses.replace(CFG, algorithm=algo, **kw),

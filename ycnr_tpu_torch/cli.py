@@ -5,16 +5,17 @@
     python -m ycnr_tpu_torch tune      --lams 0.02,0.05 [overrides]
     python -m ycnr_tpu_torch validate  --ckpt DIR --store DIR
     python -m ycnr_tpu_torch recommend --ckpt DIR --store DIR --user 42 -n 10
+    python -m ycnr_tpu_torch serve     --shm NAME --store DIR --listen :0
+    python -m ycnr_tpu_torch publish   --ckpt DIR --shm NAME
     python -m ycnr_tpu_torch export    --ckpt DIR --out FILE.npz
     python -m ycnr_tpu_torch presets
 
 The subcommands, flags, JSON lines and files are the JAX package's, with
-``--device`` in place of ``--platform``: by default the card (``cuda``),
-``--device cpu`` for a CPU run; without a card the default stops with a
-message. What is not ported yet stops with one line naming the ROADMAP item
-it waits for: ``serve``, ``publish`` and ``recommend --shm`` (shared memory
-and the server, Queue 1 item 4), ``train --ooc`` (out-of-core, items 5-6),
-``--shards > 1`` and ``--distributed`` (the mesh, item 7).
+``--device`` in place of ``--platform`` (``publish`` takes it too): by
+default the card (``cuda``), ``--device cpu`` for a CPU run; without a card
+the default stops with a message. What is not ported yet stops with one
+line naming the ROADMAP item it waits for: ``train --ooc`` (out-of-core,
+items 5-6), ``--shards > 1`` and ``--distributed`` (the mesh, item 7).
 """
 
 from __future__ import annotations
@@ -27,8 +28,6 @@ import sys
 
 from ycnr_tpu_torch.config import get_preset, list_presets
 
-_SHM = ("shared memory and the server are not ported yet (ROADMAP Queue 1, "
-        "item 4)")
 _OOC = ("out-of-core training is not ported yet (ROADMAP Queue 1, items "
         "5-6)")
 _MESH = ("sharded and multi-host training are not ported yet (ROADMAP "
@@ -190,7 +189,9 @@ def _add_train_overrides(p):
                    help="serving scorer for --measure-serving (fused = the "
                         "fused scorer kernel; see recommend --scorer)")
     p.add_argument("--publish-shm", metavar="NAME",
-                   help="not ported (item 4)")
+                   help="publish factors into shared memory after each "
+                        "epoch so serving processes hot-reload them "
+                        "(serve.ShmRecommender)")
     p.add_argument("--ckpt-backend", choices=["npz", "orbax"],
                    help="checkpoint array storage (the port writes npz; "
                         "orbax is the JAX package's)")
@@ -223,8 +224,6 @@ def _refuse_unported(args):
         raise SystemExit(f"{args.cmd}: {_MESH}")
     if args.ooc:
         raise SystemExit(f"{args.cmd} --ooc: {_OOC}")
-    if args.publish_shm:
-        raise SystemExit(f"{args.cmd} --publish-shm: {_SHM}")
     if args.ckpt_backend == "orbax":
         raise SystemExit(f"{args.cmd} --ckpt-backend orbax: orbax is a JAX "
                          f"package; the port writes npz checkpoints")
@@ -298,6 +297,8 @@ def _build_cfg(args):
         cfg = cfg.replace(measure_serving=True)
     if getattr(args, "train_scorer", None):
         cfg = cfg.replace(scorer=args.train_scorer)
+    if getattr(args, "publish_shm", None):
+        cfg = cfg.replace(publish_shm=args.publish_shm)
     if getattr(args, "early_stop", None):
         cfg = cfg.replace(early_stop_patience=args.early_stop,
                           early_stop_min_delta=args.early_stop_delta)
@@ -509,11 +510,10 @@ def cmd_prepare(args):
 
 
 def cmd_recommend(args):
-    if args.shm:
-        raise SystemExit(f"recommend --shm: {_SHM}")
-    if not args.ckpt and not getattr(args, "popular", False):
+    if not args.ckpt and not args.shm and not getattr(args, "popular",
+                                                      False):
         # --popular only counts store rows; it never loads factor state
-        raise SystemExit("recommend: --ckpt is required")
+        raise SystemExit("recommend: one of --ckpt / --shm is required")
     import numpy as np
 
     from ycnr_tpu_torch.data.store import RatingsStore
@@ -540,8 +540,13 @@ def cmd_recommend(args):
                                    int(store.meta["n_items"]), "--exclude")
 
     def _load_state():
-        """(state, manifest) from the checkpoint, on the command's
-        device."""
+        """(state, manifest | None) on the command's device; shm segments
+        carry no manifest."""
+        if args.shm:
+            from ycnr_tpu_torch.serve.shm import FactorShmReader
+
+            with FactorShmReader(args.shm) as reader:
+                return reader.read(device=_device(args))[0], None
         from ycnr_tpu_torch.train.checkpoint import load_checkpoint
 
         return load_checkpoint(args.ckpt, device=_device(args))
@@ -704,11 +709,73 @@ def cmd_recommend(args):
 
 
 def cmd_serve(args):
-    raise SystemExit(f"serve: {_SHM}")
+    """Long-running serving loop: one request per stdin line, one JSON
+    response per stdout line (the protocol of ``serve/server.py``). With
+    --shm the factors hot-reload whenever the trainer republishes; with
+    --listen the same protocol runs behind a thread-per-connection TCP
+    server; with --shm-cache computed lists are shared with every serving
+    process attached to that cache segment."""
+    if not args.ckpt and not args.shm:
+        raise SystemExit("serve: one of --ckpt / --shm is required")
+    device = _device(args)
+    from ycnr_tpu_torch.serve.server import ServingApp
+
+    store, u, i, r = _open_store(args.store)
+    maps = store.id_maps()
+    manifest = None
+    shared_cache = None
+    if args.shm_cache:
+        from ycnr_tpu_torch.serve.cache import ShmRecCache
+
+        shared_cache = ShmRecCache(args.shm_cache)
+    if args.shm:
+        from ycnr_tpu_torch.serve.shm import ShmRecommender
+
+        rec = ShmRecommender(args.shm, u, i, cache=shared_cache,
+                             device=device)
+    else:
+        from ycnr_tpu_torch.serve.engine import Recommender
+        from ycnr_tpu_torch.train.checkpoint import load_checkpoint
+
+        state0, manifest = load_checkpoint(args.ckpt, device=device)
+        rec = Recommender(state0, u, i, train_r=r, cache=shared_cache)
+    fold_lam, fold_alpha = _fold_params(manifest, args)
+    app = ServingApp(
+        rec, maps=maps, n=args.n, fold_lam=fold_lam, fold_alpha=fold_alpha,
+        store_meta=store.meta, source="shm" if args.shm else "ckpt",
+        epoch=(manifest.get("epoch") if manifest else None),
+        shm=bool(args.shm))
+
+    ready = {"event": "ready", "users": int(store.meta["n_users"]),
+             "items": int(store.meta["n_items"])}
+    eng = rec.engine if args.shm else rec
+    if args.precompute:
+        ready["precomputed"] = eng.precompute_all(args.n)
+    if args.precompute_similar:
+        ready["precomputed_similar"] = eng.precompute_similar(args.n)
+    if args.listen:
+        from ycnr_tpu_torch.serve.server import serve_tcp
+
+        host, _, port = args.listen.rpartition(":")
+        with serve_tcp(app, host, int(port)) as srv:
+            ready["listen"] = "%s:%d" % srv.server_address[:2]
+            print(json.dumps(ready), flush=True)
+            srv.serve_forever()
+    else:
+        print(json.dumps(ready), flush=True)
+        for line in sys.stdin:
+            line = line.strip()
+            if line:
+                print(app.handle(line), flush=True)
 
 
 def cmd_publish(args):
-    raise SystemExit(f"publish: {_SHM}")
+    """Load a checkpoint and publish it into a named shm segment (boots a
+    serving fleet from durable storage)."""
+    from ycnr_tpu_torch.serve.shm import publish_checkpoint
+
+    epoch = publish_checkpoint(args.ckpt, args.shm, device=_device(args))
+    print(json.dumps({"shm": args.shm, "ckpt": args.ckpt, "epoch": epoch}))
 
 
 def cmd_export(args):
@@ -849,9 +916,12 @@ def main(argv=None):
                         "marginals (see train --calibrated)")
     p.set_defaults(fn=cmd_prepare)
 
-    p = sub.add_parser("recommend", help="serve top-N from a checkpoint")
-    p.add_argument("--ckpt", help="checkpoint dir")
-    p.add_argument("--shm", metavar="NAME", help="not ported (item 4)")
+    p = sub.add_parser("recommend",
+                       help="serve top-N from a checkpoint or shm store")
+    p.add_argument("--ckpt", help="checkpoint dir (or use --shm)")
+    p.add_argument("--shm", metavar="NAME",
+                   help="attach factors from a shared-memory store "
+                        "published by `train --publish-shm` / `publish`")
     p.add_argument("--store", required=True)
     p.add_argument("--user", type=int, nargs="*", default=[],
                    help="trained user ids to serve (or use --rated)")
@@ -893,24 +963,44 @@ def main(argv=None):
                         "(0 forces the explicit solve)")
     p.set_defaults(fn=cmd_recommend)
 
-    p = sub.add_parser("serve", help="not ported (ROADMAP Queue 1, item 4)")
+    p = sub.add_parser("serve",
+                       help="serving loop: user ids on stdin, JSON recs on "
+                            "stdout (hot-reloads factors with --shm)")
     p.add_argument("--ckpt")
     p.add_argument("--shm", metavar="NAME")
-    p.add_argument("--store")
+    p.add_argument("--store", required=True)
     p.add_argument("-n", type=int, default=10)
     _add_device(p)
-    p.add_argument("--listen", metavar="HOST:PORT")
-    p.add_argument("--shm-cache", metavar="NAME")
-    p.add_argument("--precompute", action="store_true")
-    p.add_argument("--precompute-similar", action="store_true")
-    p.add_argument("--lam", type=float)
-    p.add_argument("--alpha", type=float)
+    p.add_argument("--listen", metavar="HOST:PORT",
+                   help="serve the same line protocol over TCP instead of "
+                        "stdin (port 0 picks a free port, printed in the "
+                        "ready line)")
+    p.add_argument("--shm-cache", metavar="NAME",
+                   help="share computed top-N lists across every serving "
+                        "process through a POSIX-shm cache segment "
+                        "(entries are keyed by the published factor epoch, "
+                        "so a republish invalidates fleet-wide)")
+    p.add_argument("--precompute", action="store_true",
+                   help="bulk-fill the cache with top-N for EVERY rated "
+                        "user at startup (one pass through the fused "
+                        "scorer kernel)")
+    p.add_argument("--precompute-similar", action="store_true",
+                   help="bulk-fill the cache with top-N similar items for "
+                        "EVERY live catalog item at startup")
+    p.add_argument("--lam", type=float,
+                   help="fold-in regularization override (default: the "
+                        "checkpoint's training lam)")
+    p.add_argument("--alpha", type=float,
+                   help="fold-in implicit-confidence alpha override "
+                        "(0 forces the explicit solve)")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("publish",
-                       help="not ported (ROADMAP Queue 1, item 4)")
-    p.add_argument("--ckpt")
-    p.add_argument("--shm", metavar="NAME")
+                       help="publish checkpoint factors into shared memory "
+                            "for serving processes")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--shm", metavar="NAME", required=True)
+    _add_device(p)
     p.set_defaults(fn=cmd_publish)
 
     p = sub.add_parser("export",

@@ -4,8 +4,9 @@
 Runs any of the algorithm families from a RunConfig — ALS-WR and iALS on
 the bucketed layout, biased SGD (batched and stream) and BPR — with
 per-epoch held-out RMSE (``1 - hit_rate`` for BPR), JSONL metrics, early
-stopping, checkpoints with resume, and warm start. Sharded and out-of-core
-training, shm publishing and orbax checkpoints are not ported yet and are
+stopping, checkpoints with resume, warm start, and the factors published
+into shared memory after every epoch (``cfg.publish_shm``). Sharded and
+out-of-core training and orbax checkpoints are not ported yet and are
 refused.
 """
 
@@ -62,9 +63,8 @@ class TrainResult:
 def _check_supported(cfg: RunConfig):
     if cfg.mesh.n_shards > 1 or cfg.ooc:
         raise NotImplementedError("the port trains on one GPU, resident")
-    if cfg.publish_shm or cfg.checkpoint_backend != "npz":
-        raise NotImplementedError("shm publishing and orbax checkpoints "
-                                  "are not ported")
+    if cfg.checkpoint_backend != "npz":
+        raise NotImplementedError("orbax checkpoints are not ported")
 
 
 def _algo_params(cfg: RunConfig):
@@ -125,6 +125,16 @@ def _start_state(cfg: RunConfig, ds: Dataset, params, resume, warm_start,
         return state, 0, []
     return init_state(ds.n_users, ds.n_items, params.rank, seed=cfg.seed,
                       mu=mu, dtype=dtype, device=device), 0, []
+
+
+def _shm_writer(cfg: RunConfig, state: MFState):
+    """The live-factor publisher of ``cfg.publish_shm``, or None."""
+    if not cfg.publish_shm:
+        return None
+    from ycnr_tpu_torch.serve.shm import FactorShmWriter
+
+    return FactorShmWriter(cfg.publish_shm, state.n_users, state.n_items,
+                           state.rank)
 
 
 def _bucketed_layouts(cfg: RunConfig, ds: Dataset, params, dtype, device):
@@ -223,10 +233,11 @@ def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
         return hit_rate_at_n(state, ds.train_u, ds.train_i, ds.test_u,
                              ds.test_i, n=cfg.topn, max_users=512)
 
+    shm_writer = _shm_writer(cfg, state)
     if cfg.fused_epochs > 1 and cfg.algorithm in ("als", "ials"):
         state = _fused_epoch_blocks(cfg, ds, params, state, start_epoch,
                                     history, dtype, device, test_coo,
-                                    train_coo, metrics, out)
+                                    train_coo, metrics, out, shm_writer)
         epochs_done = params.epochs  # the blocks ran everything
     else:
         epochs_done = start_epoch
@@ -266,8 +277,12 @@ def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
             save_checkpoint(os.path.join(out, "ckpt"), state, epoch + 1,
                             config=config_dict(cfg),
                             extra=_ckpt_extra(history))
+        if shm_writer is not None:
+            shm_writer.publish(state, epoch + 1)
         if stop:
             break
+    if shm_writer is not None:
+        shm_writer.close()
     if (cfg.algorithm in ("ials", "bpr") or cfg.log_hit_rate) and history:
         # final full ranking suite for the implicit models (per-epoch
         # records carry only the cheap hit-rate)
@@ -281,7 +296,8 @@ def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
 
 
 def _fused_epoch_blocks(cfg, ds, params, state, start_epoch, history,
-                        dtype, device, test_coo, train_coo, metrics, out):
+                        dtype, device, test_coo, train_coo, metrics, out,
+                        shm_writer):
     """ALS/iALS epochs in blocks of ``cfg.fused_epochs``, with the JAX
     package's block boundaries (``ycnr_tpu/train/loop._fused_epoch_blocks``).
 
@@ -290,8 +306,8 @@ def _fused_epoch_blocks(cfg, ds, params, state, start_epoch, history,
     so nothing is fused, but what the reference does at a block's end is
     behaviour and is kept: one record per epoch with ``epoch_s`` = block
     wall / k and ``fused=k``, the iALS hit rate on a block's last epoch
-    only, early stopping and checkpoints at block ends. Appends to
-    ``history`` in place and returns the final state."""
+    only, early stopping, checkpoints and shm publishes at block ends.
+    Appends to ``history`` in place and returns the final state."""
     dul, dil = _bucketed_layouts(cfg, ds, params, dtype, device)
     bf16 = params.gather_dtype == "bfloat16"
     epoch = start_epoch
@@ -331,6 +347,8 @@ def _fused_epoch_blocks(cfg, ds, params, state, start_epoch, history,
             save_checkpoint(os.path.join(out, "ckpt"), state, epoch,
                             config=config_dict(cfg),
                             extra=_ckpt_extra(history))
+        if shm_writer is not None:
+            shm_writer.publish(state, epoch)
         if stop:
             break
     return state
