@@ -84,7 +84,24 @@ Run from the repository root:  python3 chip_smoke.py
     republishes under traffic (every answer one published state's list,
     epochs monotone on each connection, then all at the last); a second
     ``python -m ycnr_tpu_torch serve`` process on the same segment and
-    cache (the same lists, hits on the first process's entries).
+    cache (the same lists, hits on the first process's entries);
+19. out-of-core training on the main path's arrays (``models/ooc.py``):
+    the packed wire of both views (host build seconds, bytes a rating,
+    RECT bytes); ALS-WR 4 epochs through ``train(ooc=True)`` with the wire
+    pinned ("device", RECT) and streamed from host memory ("host",
+    packed), and through ``als_epoch_ooc`` with half of it pinned, each
+    bit-equal to the resident ``train()`` of the same config (RMSE
+    trajectory and factors), within 1e-3 of the reference trajectory,
+    trash and cold rows 0, with s/epoch, bytes streamed, epoch 3 by kernel
+    and the peak device memory (the streamed run's below the resident
+    run's, and within ``auto_wire_budget``'s reserve); one iALS epoch
+    streamed, bit-equal to the resident epoch; wire-order storage (2
+    epochs) against the classic OOC run from the same init; ``rmse_wire``
+    against ``rmse_padded``; stream SGD with ``ml1m-sgd``'s
+    hyperparameters on these arrays (2 epochs, one batch order) in its
+    four forms (flat / compact, resident / streamed), bit-equal; and
+    ``train --ooc --preset ml20m-als`` on the store of item 17, equal to
+    the resident ``train()``.
 
 Every path runs with the kernels' launch counts set to 0 just before it,
 and each kernel must have launched on the paths that use it. Every failed
@@ -1169,7 +1186,8 @@ def phase_cli(dev, u, i, r, tu, ti, tr, su, si, sr, ul, il, smi: str,
     check(man["config"]["als"]["lam"] == best["lam"] and bool(
         torch.isfinite(st.U).all()), "cli tune: best checkpoint loads")
     log(f"cli: kernel launches per command {per_cmd}; on {smi}")
-    return {"per_cmd": per_cmd, "store": store, "ckpt": ckpt}
+    return {"per_cmd": per_cmd, "store": store, "ckpt": ckpt,
+            "cfg_file": cfg_file}
 
 
 SERVE_USERS = 512  # users whose lists are computed in process per state
@@ -1637,6 +1655,473 @@ def phase_serve(dev, u, i, cli: dict, names: dict, smi: str,
         f"{out['cold_ms'][1]:.2f} ms; reload {out['reload_ms']} ms; "
         f"read + host-to-device {out['read_ms']:.2f} ms; precompute "
         f"{out['precompute_s']:.2f} s, K2 {out['k2_ms']:.3f} ms")
+    return out
+
+
+@contextlib.contextmanager
+def shared_wire_builds(known: dict):
+    """While open, train()'s host wire builds (build_packed / build_rect)
+    are memoized by their arguments (the arrays by identity), starting from
+    ``known``, as shared_bucketed_layouts does for the resident layouts."""
+    import importlib
+
+    loop = importlib.import_module("ycnr_tpu_torch.train.loop")
+    real = {"packed": loop.build_packed, "rect": loop.build_rect}
+    cache = dict(known)
+
+    def memo(kind):
+        def build(a, b, r, na, nb, rank, max_groups):
+            key = (kind, id(a), id(b), id(r), na, nb, rank, max_groups)
+            if key not in cache:
+                cache[key] = real[kind](a, b, r, na, nb, rank,
+                                        max_groups=max_groups)
+            return cache[key]
+        return build
+
+    loop.build_packed, loop.build_rect = memo("packed"), memo("rect")
+    try:
+        yield cache
+    finally:
+        loop.build_packed, loop.build_rect = real["packed"], real["rect"]
+
+
+@contextlib.contextmanager
+def profiled_call(module, name: str, nth: int, what: str, out: dict):
+    """While open, the nth call of module.name runs under the profiler
+    (profile_breakdown); its device ms and time by kernel go to ``out``."""
+    real = getattr(module, name)
+    calls = [0]
+
+    def wrapped(*a, **kw):
+        calls[0] += 1
+        if calls[0] != nth:
+            return real(*a, **kw)
+        out["by_kernel"] = {}
+        res, out["device_ms"] = profile_breakdown(
+            lambda: real(*a, **kw), what, out["by_kernel"])
+        return res
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def kernel_shares(by_kernel: dict) -> dict:
+    """Device ms by part of an epoch: the fused gather -> Gram, K1, the row
+    gather, copies (memcpy / memset, host-to-device included), and the
+    rest (the wire decode's torch ops, the row writes, split sums)."""
+    out = dict.fromkeys(("fused_gram", "K1", "row_gather", "copies",
+                         "rest"), 0.0)
+    for key, ms in by_kernel.items():
+        part = ("fused_gram" if "fused_gram" in key else
+                "K1" if "spd_solve" in key else
+                "row_gather" if "row_gather" in key else
+                "copies" if "Memcpy" in key or "Memset" in key else "rest")
+        out[part] += ms
+    return out
+
+
+def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
+              smi: str, tmp: str) -> dict:
+    """Out-of-core training on the main path's arrays (ALS-WR rank 64, lam
+    0.05, 8 groups, bf16 gathers): the packed wire of both views; 4 epochs
+    through train(ooc=True) with the wire pinned ("device", RECT) and
+    streamed ("host", packed), and 4 epochs of als_epoch_ooc with half of
+    the wire pinned; each against the resident train() of the same config
+    in this call (RMSE trajectory and factors bit for bit), the reference
+    trajectory, zero trash and cold rows, s/epoch, bytes streamed, peak
+    device memory, epoch 3 by kernel. Then one iALS epoch streamed against
+    the resident bucketed iALS epoch; wire-order storage (2 epochs) against
+    the classic OOC run from the same init; rmse_wire against rmse_padded;
+    stream SGD (ml1m-sgd's hyperparameters, 2 epochs, one batch order) in
+    its four forms; and python -m ycnr_tpu_torch train --ooc on the CLI
+    phase's store against the resident train()."""
+    import dataclasses
+    import importlib
+
+    from ycnr_tpu_torch.cli import main as cli_main
+    from ycnr_tpu_torch.config import get_preset
+    from ycnr_tpu_torch.data.dataset import Dataset
+    from ycnr_tpu_torch.models import ooc
+    from ycnr_tpu_torch.models.base import (init_state, rmse_padded,
+                                            zero_cold_entities)
+    from ycnr_tpu_torch.models.bucketed_phase import (device_bucketed,
+                                                      ials_epoch_fn)
+    from ycnr_tpu_torch.models.sgd_stream import StreamSGD, \
+        prepare_stream_sgd
+    from ycnr_tpu_torch.ops.layout import pad_coo
+    from ycnr_tpu_torch.ops.packed import (build_packed, packed_stats,
+                                           rect_from_packed,
+                                           wire_storage_plan)
+    from ycnr_tpu_torch.ops.sgd_wire import compact_from_stream, put_compact
+    from ycnr_tpu_torch.train.loop import train
+
+    loop = importlib.import_module("ycnr_tpu_torch.train.loop")
+    n_users, n_items, rank, lam, g = (MAIN[k] for k in (
+        "n_users", "n_items", "rank", "lam", "groups"))
+    nnz = len(tr)
+    out = {"launches": dict.fromkeys(("spd_solve", "fused_gram",
+                                      "row_gather"), 0)}
+
+    def count(launches):
+        for k in out["launches"]:
+            out["launches"][k] += launches[k]
+
+    # ---- 1. the wire ------------------------------------------------------
+    t0 = time.time()
+    upk = build_packed(tu, ti, tr, n_users, n_items, rank, max_groups=g)
+    t_u = time.time() - t0
+    t0 = time.time()
+    ipk = build_packed(ti, tu, tr, n_items, n_users, rank, max_groups=g)
+    t_i = time.time() - t0
+    t0 = time.time()
+    rect = sum(ooc.wire_nbytes([rect_from_packed(x)]) for x in upk + ipk)
+    t_rect = time.time() - t0
+    su_, si_ = packed_stats(upk, nnz), packed_stats(ipk, nnz)
+    wire = ooc.wire_nbytes(upk, ipk)
+    log(f"ooc build: build_packed users {t_u:.1f} s, items {t_i:.1f} s "
+        f"(host); wire {su_['wire_bytes']:,} + {si_['wire_bytes']:,} bytes "
+        f"= {su_['wire_bytes_per_rating']:.3f} + "
+        f"{si_['wire_bytes_per_rating']:.3f} B/rating ({su_['rating_kind']}"
+        f" ratings, fill {su_['fill']:.3f} / {si_['fill']:.3f}); RECT "
+        f"after rect_from_packed {rect:,} bytes = {rect / nnz:.3f} B/rating "
+        f"({t_rect:.1f} s)")
+    check(su_["rating_kind"] == "half", "ooc: half-star ratings ride int8")
+    # the host's copy rate into pinned memory: what the streamed tier's
+    # staging threads do with every chunk
+    src = max((x.lo for x in upk + ipk), key=lambda a: a.nbytes)
+    src = src.reshape(-1).view(np.uint8)
+    pin = torch.empty(src.nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.copyto(pin, src)
+        walls.append(time.perf_counter() - t0)
+    copy_s = float(np.median(walls))
+    log(f"ooc staging: np.copyto of {src.nbytes:,} bytes into pinned host "
+        f"memory, median of 5: {1e3 * copy_s:.2f} ms = "
+        f"{src.nbytes / copy_s / 1e9:.2f} GB/s (host clock)")
+    out["copy_gb_s"] = src.nbytes / copy_s / 1e9
+    del pin
+
+    # ---- 2. ALS-WR through train(): resident, "device", "host" -------------
+    base = get_preset("ml20m-als")
+    cfg = base.replace(
+        data=dataclasses.replace(base.data, test_fraction=0.05, seed=0,
+                                 max_groups=g),
+        als=dataclasses.replace(base.als, epochs=4), checkpoint_every=0,
+        # the train RMSE's device COO (~230 MB) would sit in every run's
+        # peak and hide what the residency moves
+        log_train_rmse=False)
+    ds = Dataset(n_users=n_users, n_items=n_items, train_u=tu, train_i=ti,
+                 train_r=tr, test_u=su, test_i=si, test_r=sr,
+                 mu=float(tr.mean()), chunk_len=32, rank_hint=rank)
+    known = {(id(tu), id(ti), id(tr), n_users, n_items, 32, rank, g): ul,
+             (id(ti), id(tu), id(tr), n_items, n_users, 32, rank, g): il}
+    wire_known = {("packed", id(tu), id(ti), id(tr), n_users, n_items, rank,
+                   g): upk,
+                  ("packed", id(ti), id(tu), id(tr), n_items, n_users, rank,
+                   g): ipk}
+    test_coo = tuple(torch.as_tensor(x, device=dev)
+                     for x in ds.padded_test()[:3]) + (len(sr),)
+    cold_u = torch.as_tensor(np.setdiff1d(np.arange(n_users + 1),
+                                          np.unique(tu)), device=dev)
+    cold_i = torch.as_tensor(np.setdiff1d(np.arange(n_items + 1),
+                                          np.unique(ti)), device=dev)
+
+    def measured(fn):
+        """fn() with the launch counts, ooc.staged_bytes and the peak
+        device memory set to 0 just before it and read just after."""
+        sync()
+        ooc.staged_bytes = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        at_start = torch.cuda.memory_allocated(dev)
+        reset_launches()
+        res = fn()
+        sync()
+        launches = read_launches()
+        count(launches)
+        return res, {"launches": launches, "staged": ooc.staged_bytes,
+                     "peak": torch.cuda.max_memory_allocated(dev) - at_start}
+
+    runs = {}
+    for name, c in (("resident", cfg),
+                    ("device", cfg.replace(ooc=True,
+                                           ooc_residency="device")),
+                    ("host", cfg.replace(ooc=True, ooc_residency="host"))):
+        run_dir = os.path.join(tmp, "ooc", name)
+        prof = {}
+        with shared_bucketed_layouts(known), shared_wire_builds(wire_known), \
+                (profiled_call(loop, "als_epoch_ooc", 3,
+                               f"OOC epoch 3 ({name})", prof)
+                 if c.ooc else contextlib.nullcontext()):
+            res, m = measured(lambda: train(c, dataset=ds,
+                                                  out_dir=run_dir,
+                                                  device=dev))
+        ev = read_events(run_dir)
+        m.update(res=res, prof=prof, events=ev, rmse=res.rmse_history,
+                 s=[e["epoch_s"] for e in ev if "rmse_test" in e])
+        runs[name] = m
+
+    # ---- the partial pin: half of the wire on the card, the rest streamed
+    du, di, pinned = ooc.wire_to_device(upk, ipk, budget_bytes=wire // 2,
+                                        device=dev)
+    n_pinned = sum(ooc.group_resident(x) for x in du + di)
+    log(f"ooc partial pin: {pinned:,} of {wire:,} wire bytes under a budget "
+        f"of {wire // 2:,}; {n_pinned} of {len(du) + len(di)} groups pinned")
+    check(0 < n_pinned < len(du) + len(di), "ooc partial pin: some groups "
+          "pinned, some streamed")
+
+    def partial():
+        st = zero_cold_entities(init_state(n_users, n_items, rank, seed=0,
+                                           device=dev), tu, ti)
+        rmse, s = [], []
+        for ep in range(4):
+            sync()
+            t0 = time.time()
+            if ep == 2:
+                st, prof["device_ms"] = profile_breakdown(
+                    lambda: ooc.als_epoch_ooc(st, du, di, lam,
+                                              gather_bf16=True),
+                    "OOC epoch 3 (partial)", prof["by_kernel"])
+            else:
+                st = ooc.als_epoch_ooc(st, du, di, lam, gather_bf16=True)
+            sync()
+            s.append(time.time() - t0)
+            rmse.append(float(rmse_padded(st, *test_coo)))
+        return st, rmse, s
+
+    prof = {"by_kernel": {}}
+    (st, rmse, s), m = measured(partial)
+    m.update(res=None, state=st, prof=prof, rmse=rmse, s=s)
+    runs["partial"] = m
+    del du, di
+
+    ref = runs["resident"]
+    check(ref["launches"]["fused_gram"] > 0 and ref["launches"]["spd_solve"]
+          > 0, "ooc: the resident train() ran fused_gram and K1")
+    main_rest = kernel_shares(main["by_kernel"])["rest"]
+    reserve = 80 * 10**9 - ooc.auto_wire_budget(
+        n_users, n_items, rank, hbm_bytes=80 * 10**9, groups=(upk, ipk))
+    for name in ("resident", "device", "host", "partial"):
+        m = runs[name]
+        state = m["state"] if name == "partial" else m["res"].state
+        wall = (m["s"][1] + m["s"][3]) / 2
+        line = (f"ooc {name}: rmse {[round(x, 6) for x in m['rmse']]}; "
+                f"s/epoch 2-4 {[round(x, 4) for x in m['s'][1:]]} (3 "
+                f"profiled), epochs 2 and 4 mean {wall:.4f}; peak device "
+                f"memory {m['peak'] / 1e9:.3f} GB above the run's start")
+        if name != "resident":
+            check(m["rmse"] == ref["rmse"], f"ooc {name}: held-out rmse "
+                  f"trajectory bit-equal to the resident train()'s")
+            check(torch.equal(state.U, ref["res"].state.U) and torch.equal(
+                state.V, ref["res"].state.V), f"ooc {name}: factors "
+                f"bit-equal to the resident train()'s")
+            check(m["launches"]["fused_gram"] > 0
+                  and m["launches"]["spd_solve"] > 0,
+                  f"ooc {name}: fused_gram and K1 launched")
+            per_epoch = m["staged"] / 4
+            sh = kernel_shares(m["prof"]["by_kernel"])
+            dev_ms = m["prof"]["device_ms"]
+            line += (f"; host-to-device {per_epoch / 1e6:.1f} MB/epoch = "
+                     f"{per_epoch / wall / 1e9:.2f} GB/s of epoch wall; "
+                     f"epoch 3: {dev_ms:.2f} ms of device time, fused_gram "
+                     f"{sh['fused_gram']:.2f}, K1 {sh['K1']:.2f}, copies "
+                     f"{sh['copies']:.2f}, rest {sh['rest']:.2f} (decode "
+                     f"~{sh['rest'] - main_rest:.2f} ms = "
+                     f"{(sh['rest'] - main_rest) / dev_ms:.3f} above the "
+                     f"resident epoch's rest {main_rest:.2f}); device idle "
+                     f"{1 - dev_ms / 1e3 / wall:.3f} of the unprofiled wall")
+        log(line + f"; launches {m['launches']}")
+        for what, v in zip(ANCHOR_RMSE, m["rmse"]):
+            check(abs(v - what) <= RMSE_TOL, f"ooc {name}: rmse {v:.6f} "
+                  f"within {RMSE_TOL} of {what}")
+        check(bool((state.U[cold_u] == 0).all() and (state.V[cold_i]
+                                                     == 0).all()),
+              f"ooc {name}: trash and cold rows exactly 0")
+    dev_ev = [e for e in runs["device"]["events"]
+              if e.get("event") == "ooc_residency"]
+    check(len(dev_ev) == 1 and dev_ev[0]["streamed_bytes"] == 0
+          and dev_ev[0]["hbm_pinned_bytes"] > 0, "ooc device: everything "
+          "pinned (the ooc_residency event)")
+    check(runs["device"]["staged"] == 0 and runs["host"]["staged"] >= 4 * wire,
+          "ooc: the pinned run streamed nothing, the host run its wire "
+          "every epoch")
+    log(f"ooc peaks: resident {ref['peak'] / 1e9:.3f} GB, device "
+        f"{runs['device']['peak'] / 1e9:.3f}, host "
+        f"{runs['host']['peak'] / 1e9:.3f}, partial "
+        f"{runs['partial']['peak'] / 1e9:.3f}; auto_wire_budget's reserve "
+        f"for this shape {reserve / 1e9:.3f} GB (1 GB of it margin)")
+    check(runs["host"]["peak"] < ref["peak"], "ooc host: peak device memory "
+          "below the resident run's")
+    check(runs["host"]["peak"] <= reserve, "ooc host: peak within "
+          "auto_wire_budget's reserve")
+    out["runs"] = {k: {"rmse": v["rmse"], "s": v["s"], "peak": v["peak"],
+                       "staged": v["staged"]} for k, v in runs.items()}
+    resident_state = ref["res"].state
+    del runs
+    sync()
+
+    # ---- 3. iALS, one epoch streamed, against the resident epoch -----------
+    def start():
+        return zero_cold_entities(init_state(n_users, n_items, rank, seed=0,
+                                             device=dev), tu, ti)
+
+    dul = device_bucketed(ul, torch.float32, dev)
+    dil = device_bucketed(il, torch.float32, dev)
+    t0 = time.time()
+    want = ials_epoch_fn(dul, dil, IALS["lam"], IALS["alpha"], True)(start())
+    sync()
+    t_res = time.time() - t0
+    del dul, dil
+    t0 = time.time()
+    got, m = measured(lambda: ooc.ials_epoch_ooc(
+        start(), upk, ipk, IALS["lam"], IALS["alpha"], gather_bf16=True))
+    t_ooc = time.time() - t0
+    same = torch.equal(got.U, want.U) and torch.equal(got.V, want.V)
+    log(f"ooc iALS epoch (host, bf16 gathers): bit-equal to the resident "
+        f"bucketed iALS epoch: {same}; {t_ooc:.3f} s (resident "
+        f"{t_res:.3f} s); launches {m['launches']}")
+    check(same, "ooc iALS: bit-equal to the resident epoch")
+    check(m["launches"]["row_gather"] > 0 and m["launches"]["spd_solve"] > 0,
+          "ooc iALS: row_gather and K1 launched")
+    del got, want
+
+    # ---- 4. wire-order storage against the classic OOC run ------------------
+    t0 = time.time()
+    up = wire_storage_plan(np.bincount(tu, minlength=n_users),
+                           rank_hint=rank, max_groups=g)
+    ip = wire_storage_plan(np.bincount(ti, minlength=n_items),
+                           rank_hint=rank, max_groups=g)
+    wu = build_packed(tu, ti, tr, n_users, n_items, rank, max_groups=g,
+                      other_plan=ip)
+    wi = build_packed(ti, tu, tr, n_items, n_users, rank, max_groups=g,
+                      other_plan=up)
+    t_ws = time.time() - t0
+
+    def storage():
+        U = ooc.wire_storage_init(up, rank, seed=0, device=dev)
+        V = ooc.wire_storage_init(ip, rank, seed=0, entity_offset=n_users,
+                                  device=dev)
+        pu, pi = ooc.DeviceWirePlan(up), ooc.DeviceWirePlan(ip)
+        for _ in range(2):
+            U, V = ooc.als_epoch_wire(U, V, wu, wi, lam, pu, pi,
+                                      gather_bf16=True)
+        return U, V
+
+    (U, V), m = measured(storage)
+    classic = init_state(n_users, n_items, rank, seed=0, device=dev)
+    for _ in range(2):
+        classic = ooc.als_epoch_ooc(classic, upk, ipk, lam, gather_bf16=True)
+    perm_u = torch.as_tensor(up.perm, device=dev).long()
+    perm_i = torch.as_tensor(ip.perm, device=dev).long()
+    du_max = float((U[perm_u] - classic.U[:n_users]).abs().max())
+    dv_max = float((V[perm_i] - classic.V[:n_items]).abs().max())
+    scale = float(classic.U.abs().max())
+    ws_state = classic._replace(
+        U=torch.cat([U[perm_u], classic.U[-1:]]),
+        V=torch.cat([V[perm_i], classic.V[-1:]]))
+    r_ws = float(rmse_padded(ws_state, *test_coo))
+    r_cl = float(rmse_padded(classic, *test_coo))
+    log(f"ooc wire-order storage: plans + builds {t_ws:.1f} s (host); 2 "
+        f"epochs against the classic OOC run from the same init: max "
+        f"|dU| {du_max:.3e}, |dV| {dv_max:.3e} (max |U| {scale:.3f}); "
+        f"held-out rmse {r_ws:.6f} vs {r_cl:.6f}; launches {m['launches']}")
+    check(m["launches"]["fused_gram"] > 0, "ooc wire storage: fused_gram "
+          "launched")
+    check(du_max <= 1e-2 * scale and dv_max <= 1e-2 * scale
+          and abs(r_ws - r_cl) <= 1e-4, "ooc wire storage: rows match the "
+          "classic run's (reduction order only)")
+    del U, V, ws_state, wu, wi
+    qu, qi, qr, _ = pad_coo(tu, ti, tr, n_users, n_items)
+    train_coo = tuple(torch.as_tensor(x, device=dev) for x in (qu, qi, qr))
+    want = float(rmse_padded(classic, *train_coo, nnz))
+    got32 = ooc.rmse_wire(classic, upk, nnz, gather_bf16=False)
+    got16 = ooc.rmse_wire(classic, upk, nnz)
+    log(f"ooc rmse_wire on the training set: f32 {got32:.7f}, bf16 "
+        f"{got16:.7f}; rmse_padded {want:.7f}")
+    check(abs(got32 - want) <= 1e-5 and abs(got16 - want) <= 3e-3,
+          "ooc rmse_wire agrees with rmse_padded")
+    del train_coo, classic
+
+    # ---- 5. stream SGD, four forms ------------------------------------------
+    p = get_preset("ml1m-sgd").sgd
+    t0 = time.time()
+    host, _ = prepare_stream_sgd(tu, ti, tr, p.batch_size, n_users, n_items,
+                                 seed=0, grad_mode="capped", device=False)
+    t_prep = time.time() - t0
+    t0 = time.time()
+    comp = compact_from_stream(host, n_items)
+    t_comp = time.time() - t0
+    flat = host._replace(**{
+        k: torch.as_tensor(getattr(host, k), device=dev).long()
+        if k in ("ul", "ib") else torch.as_tensor(getattr(host, k),
+                                                  device=dev)
+        for k in ("ul", "ib", "rb", "wu", "wi")})
+    flat_b = sum(getattr(host, k).nbytes for k in ("ul", "ib", "rb", "wu",
+                                                   "wi", "u_lo"))
+    nb = host.ul.shape[0]
+    orders = [np.random.default_rng(ep).permutation(nb) for ep in range(2)]
+    trainer = StreamSGD(p.lam, p.lr, p.lr_decay, seed=0, grad_mode="capped")
+    mu = float(tr.mean())
+    forms = {}
+    for name, data in (("flat resident", flat), ("flat streamed", host),
+                       ("compact pinned", put_compact(comp, dev)),
+                       ("compact streamed", comp)):
+        def two():
+            st = zero_cold_entities(init_state(
+                n_users, n_items, p.rank, seed=0, mu=mu, device=dev), tu, ti)
+            s = []
+            for ep in range(2):
+                sync()
+                t0 = time.time()
+                st = trainer.epoch(st, data, ep, order=orders[ep])
+                sync()
+                s.append(time.time() - t0)
+            return st, s
+
+        (st, s), m = measured(two)
+        forms[name] = (st, s)
+        log(f"ooc stream SGD {name}: s/epoch {[round(x, 3) for x in s]}; "
+            f"launches {m['launches']}")
+        check(m["launches"]["row_gather"] > 0,
+              f"ooc stream SGD {name}: row_gather launched")
+    first = forms["flat resident"][0]
+    for name, (st, _) in forms.items():
+        check(states_equal(st[:4], first[:4]), f"ooc stream SGD {name}: "
+              f"bit-equal to the flat resident epochs")
+    log(f"ooc stream SGD: {nb} batches of {p.batch_size} (rank {p.rank}, "
+        f"capped); prepare_stream_sgd {t_prep:.1f} s, compact_from_stream "
+        f"{t_comp:.1f} s (host); compact wire {comp.nbytes / host.n_real:.2f}"
+        f" B/rating against the flat stream's {flat_b / host.n_real:.2f}; "
+        f"the four forms bit-equal after 2 epochs; on {smi}")
+    out["sgd"] = {k: v[1] for k, v in forms.items()}
+    del forms, flat, comp, host, first
+
+    # ---- 6. the command line: train --ooc on the CLI phase's store ----------
+    if cli is not None:
+        import io
+
+        run_dir = os.path.join(tmp, "ooc-cli")
+        def run_cli():
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli_main(["train", "--ooc", "--preset", "ml20m-als",
+                          "--config", cli["cfg_file"], "--store",
+                          cli["store"], "--epochs", "4", "--out", run_dir])
+
+        t0 = time.time()
+        _, m = measured(run_cli)
+        got = [e["rmse_test"] for e in read_events(
+            os.path.join(run_dir, "ml20m-als")) if "rmse_test" in e]
+        want = [round(x, 6) for x in ref["rmse"]]
+        log(f"ooc cli train --ooc: {time.time() - t0:.1f} s; rmse {got}; "
+            f"in-process resident train() {want}; launches {m['launches']}")
+        check(got == want, "ooc cli train --ooc: rmse equal to the resident "
+              "train()'s")
+    del resident_state
+    log(f"ooc phase kernel launches {out['launches']}; on {smi}")
     return out
 
 
@@ -2245,12 +2730,12 @@ def run(dev):
     sync()
 
     reset_launches()
-    rmse, times = [], []
+    rmse, times, main_by_kernel = [], [], {}
     for ep in range(4):
         t0 = time.time()
         if ep == 2:  # epoch 3: where the time goes, by kernel
             state, dev_ms = profile_breakdown(lambda: epoch(state),
-                                              "epoch 3")
+                                              "epoch 3", main_by_kernel)
         else:
             state = epoch(state)
         sync()
@@ -2405,6 +2890,9 @@ def run(dev):
                             smi, tmp, names["train"])
             sync()
             serve = phase_serve(dev, u, i, cli, names, smi, tmp)
+            sync()
+            ooc = phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il,
+                            {"by_kernel": main_by_kernel}, cli, smi, tmp)
     finally:  # a name already unlinked is a no-op
         get_shm_lib().ycnr_shm_unlink(names["train"].encode())
         get_shm_lib().ycnr_shm_unlink(names["serve"].encode())
@@ -2451,7 +2939,7 @@ def run(dev):
          "source": "ycnr_tpu_torch/csrc/spd_solve.cu",
          "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
          "launches": launches["spd_solve"] + serve["train"]["spd_solve"]
-         + serve["cold"]["spd_solve"],
+         + serve["cold"]["spd_solve"] + ooc["launches"]["spd_solve"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
@@ -2472,7 +2960,8 @@ def run(dev):
                      "tools/bench_pallas_gather.py:184",
          "launches": blocked_launches["row_gather"]
          + fold_launches["row_gather"] + online["add"]["row_gather"]
-         + online["cold"]["row_gather"] + serve["cold"]["row_gather"],
+         + online["cold"]["row_gather"] + serve["cold"]["row_gather"]
+         + ooc["launches"]["row_gather"],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]},
@@ -2502,7 +2991,8 @@ def run(dev):
         {"name": "fused_gram", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/fused_gram.cu",
          "replaces": "tools/probe_gather.py:207",
-         "launches": launches["fused_gram"] + serve["train"]["fused_gram"],
+         "launches": launches["fused_gram"] + serve["train"]["fused_gram"]
+         + ooc["launches"]["fused_gram"],
          "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
          "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
          "bound_by": gram["bound_by"], "library_ms": None},

@@ -9,7 +9,9 @@ agree to the printed digit; a checkpoint written by one package's
 ``recommend --shm`` are held to ``recommend --ckpt`` on a float32
 checkpoint. Where the JAX package needs its shm libraries, they are built
 from its sources into a temporary directory. The commands not ported yet
-stop with one line naming their ROADMAP item."""
+stop with one line naming their ROADMAP item. ``train --ooc`` (out of
+core) is held to the resident ``train`` and to ``ycnr_tpu.cli``'s
+``--ooc``."""
 
 import ctypes
 import io
@@ -387,8 +389,41 @@ def test_train_fused_epochs_flag(trained, tmp_path, capsys):
         [(r["epoch"], r["fused"], r["rmse_test"]) for r in j]
 
 
+@pytest.mark.parametrize("flags", [
+    [], ["--ooc-wire", "rect"], ["--ooc-residency", "host"],
+    ["--ooc-wire", "rect", "--ooc-residency", "device"]])
+def test_train_ooc_matches_resident(trained, tmp_path, capsys, flags):
+    """--ooc trains from the rating wire (pinned or streamed, packed or
+    RECT) with the same math: its RMSE list equals the port's resident
+    train's and the JAX package's --ooc run's, and the residency event is
+    the reference's."""
+    argv = ["train", "--preset", "ml100k-als", "--store", trained["store"],
+            "--ooc", "--epochs", "3", "--rank", "6", "--config",
+            _f64(tmp_path), *flags]
+    trun(capsys, *argv, "--out", str(tmp_path / "t"))
+    jrun(capsys, *argv, "--out", str(tmp_path / "j"))
+    t = _metrics(tmp_path / "t" / "ml100k-als")
+    j = _metrics(tmp_path / "j" / "ml100k-als")
+    res = _metrics(os.path.dirname(trained["t"]))
+    rmse = [r["rmse_test"] for r in t if "rmse_test" in r]
+    assert rmse == [r["rmse_test"] for r in res if "rmse_test" in r]
+    assert rmse == [r["rmse_test"] for r in j if "rmse_test" in r]
+    ev = [r for r in t if r.get("event") == "ooc_residency"]
+    jev = [r for r in j if r.get("event") == "ooc_residency"]
+    assert [(r["hbm_pinned_bytes"], r["streamed_bytes"]) for r in ev] == \
+        [(r["hbm_pinned_bytes"], r["streamed_bytes"]) for r in jev]
+    assert len(ev) == (0 if "host" in flags else 1)
+
+
+def test_train_ooc_rejects_batched_sgd(trained, tmp_path):
+    with pytest.raises(ValueError, match="als/ials"):
+        tmain(["train", "--preset", "ml1m-sgd", "--store", trained["store"],
+               "--ooc", "--epochs", "1", "--out", str(tmp_path / "o"),
+               "--device", "cpu"])
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--ooc"], "items 5-6"),
+    (["train", "--ooc", "--shards", "2"], "item 7"),
     (["train", "--shards", "2"], "item 7"),
     (["train", "--distributed"], "item 7"),
     (["tune", "--lams", "0.1", "--shards", "4"], "item 7"),

@@ -664,3 +664,127 @@ def test_cold_request_launches_k1_and_row_gather(dev):
     finally:
         app.close()
         _shm_teardown(w, cache, rec)
+
+
+# --- out of core (models/ooc.py, the compact SGD wire) ---------------------
+
+def _ooc_problem(n_users=3000, n_items=800, n=60_000, raw=False):
+    from ycnr_tpu_torch.data.synthetic import synthetic_ratings
+
+    u, i, r = synthetic_ratings(n_users, n_items, n, true_rank=4, seed=3,
+                                rating_levels=not raw)
+    return u, i, r
+
+
+@pytest.mark.parametrize("raw", [False, True])
+def test_ooc_decode_on_cuda_equals_cpu(dev, raw):
+    """The packed and RECT decodes on the card give the CPU's blocks bit
+    for bit (int8 and raw ratings, deltas >= 32,768 and their overflow
+    bits, bf16 and f32 ratings)."""
+    from ycnr_tpu_torch.models import ooc
+    from ycnr_tpu_torch.ops import packed
+
+    rng = np.random.default_rng(0)
+    e = np.repeat(np.arange(300), 40)
+    o = rng.integers(0, 500_000, len(e))
+    r = (rng.standard_normal(len(e)).astype(np.float32) if raw
+         else rng.integers(1, 11, len(e)) / 2.0)
+    kw = dict(rank_hint=16, target_bytes=1 << 18, max_groups=3)
+    for wire in (packed.build_packed(e, o, r, 300, 500_000, **kw),
+                 packed.build_rect(e, o, r, 300, 500_000, **kw)):
+        assert any((g.lo >= 32768).any() and g.hi_val.any() for g in wire)
+        for g in wire:
+            dec = (ooc.decode_block_rect if g.lo.ndim == 3
+                   else ooc.decode_block)
+            for b in range(g.n_blocks):
+                blk = [getattr(g, n)[b] for n in ooc._WIRE_NAMES[:5]]
+                for dt in (torch.float32, torch.bfloat16):
+                    c = dec(*(ooc.wire_tensor(x, "cpu") for x in blk), g.R,
+                            g.n_other, dt)
+                    d = dec(*(ooc.wire_tensor(x, dev) for x in blk), g.R,
+                            g.n_other, dt)
+                    for x, y in zip(c, d):
+                        assert torch.equal(x, y.cpu())
+
+
+@pytest.mark.parametrize("algo", ["als", "ials"])
+def test_streamed_epoch_equals_pinned_and_resident(dev, algo):
+    """On the card (bf16 gathers: fused_gram + K1 for ALS-WR, row gather +
+    K1 for iALS) a host-streamed epoch, in chunks of one block so many
+    chunks are in flight, a pinned epoch (RECT and packed) and the
+    resident bucketed epoch give the same bits; the kernels launched."""
+    from ycnr_tpu_torch.models import base, bucketed_phase as bp, ooc
+    from ycnr_tpu_torch.ops import bucketed, packed
+
+    u, i, r = _ooc_problem()
+    kw = dict(rank_hint=32, target_bytes=1 << 20, max_groups=4)
+    up = packed.build_packed(u, i, r, 3000, 800, **kw)
+    ip = packed.build_packed(i, u, r, 800, 3000, **kw)
+    alpha = None if algo == "als" else 2.0
+    fused = algo == "als"
+    rdt = torch.bfloat16 if fused else torch.float32
+    ug = bp.device_bucketed(bucketed.build_bucketed(u, i, r, 3000, 800,
+                                                    **kw), device=dev,
+                            rating_dtype=rdt)
+    ig = bp.device_bucketed(bucketed.build_bucketed(i, u, r, 800, 3000,
+                                                    **kw), device=dev,
+                            rating_dtype=rdt)
+
+    def start():
+        return base.init_state(3000, 800, 32, seed=1, device=dev)
+
+    if fused:
+        ref = bp.als_epoch_fn(ug, ig, 0.05, True)(start())
+    else:
+        ref = bp.ials_epoch_fn(ug, ig, 0.1, 2.0, True)(start())
+    runs = []
+    for wire in ((up, ip), ooc.wire_to_device(up, ip, device=dev)[:2],
+                 ooc.wire_to_device(up, ip, pin_format="keep",
+                                    device=dev)[:2]):
+        g0, f0, s0 = rg.launches, fg.launches, sp.launches
+        if fused:
+            st = ooc.als_epoch_ooc(start(), *wire, 0.05, gather_bf16=True,
+                                   chunk_blocks=1)
+        else:
+            st = ooc.ials_epoch_ooc(start(), *wire, 0.1, alpha,
+                                    gather_bf16=True, chunk_blocks=1)
+        torch.cuda.synchronize()
+        assert sp.launches > s0
+        assert (fg.launches > f0) if fused else (rg.launches > g0)
+        runs.append(st)
+    for st in runs:
+        assert torch.equal(st.U, ref.U) and torch.equal(st.V, ref.V)
+
+
+def test_stream_sgd_four_forms_bit_equal_on_cuda(dev):
+    """The four stream-SGD forms (flat / compact, resident / streamed in
+    chunks of 3 batches) give the same bits on the card."""
+    from ycnr_tpu_torch.models import base, sgd_stream as ss
+    from ycnr_tpu_torch.ops import sgd_wire
+
+    u, i, r = _ooc_problem(600, 300, 20_000)
+    flat, _ = ss.prepare_stream_sgd(u, i, r, 512, 600, 300, seed=2,
+                                    device=dev)
+    host, _ = ss.prepare_stream_sgd(u, i, r, 512, 600, 300, seed=2,
+                                    device=False)
+    comp = sgd_wire.compact_from_stream(host, 300)
+    order = np.random.default_rng(4).permutation(flat.ul.shape[0])
+
+    def start():
+        st = base.init_state(600, 300, 16, seed=3, mu=3.5, device=dev)
+        return st
+
+    outs = [ss.sgd_stream_epoch(start(), flat.ul, flat.ib, flat.rb, flat.wu,
+                                flat.wi, flat.u_lo, order, 0.02, 0.01,
+                                flat.tile),
+            ss.sgd_stream_epoch_ooc(start(), host, order, 0.02, 0.01,
+                                    chunk_batches=3),
+            ss.sgd_stream_epoch_pinned(start(),
+                                       sgd_wire.put_compact(comp, dev),
+                                       order, 0.02, 0.01),
+            ss._compact_epoch_ooc(start(), comp, order, 0.02, 0.01,
+                                  chunk_batches=3)]
+    torch.cuda.synchronize()
+    for st in outs[1:]:
+        for a, b in zip(st[:4], outs[0][:4]):
+            assert torch.equal(a, b)

@@ -10,6 +10,7 @@ import ctypes
 import dataclasses
 import os
 import tempfile
+import types
 import uuid
 
 import numpy as np
@@ -23,7 +24,10 @@ from ycnr_tpu.data import split as jsplit
 from ycnr_tpu.data import store as jstore
 from ycnr_tpu.data import synthetic as jsynthetic
 from ycnr_tpu.ops import bucketed as jbucketed
+from ycnr_tpu.models import sgd_stream as jsgd_stream
 from ycnr_tpu.ops import layout as jlayout
+from ycnr_tpu.ops import packed as jpacked
+from ycnr_tpu.ops import sgd_wire as jsgd_wire
 from ycnr_tpu.oracle import numpy_mf as joracle
 from ycnr_tpu.serve import cache as jcache
 from ycnr_tpu.train import metrics as jmetrics
@@ -34,7 +38,10 @@ from ycnr_tpu_torch.data import split as tsplit
 from ycnr_tpu_torch.data import store as tstore
 from ycnr_tpu_torch.data import synthetic as tsynthetic
 from ycnr_tpu_torch.ops import bucketed as tbucketed
+from ycnr_tpu_torch.models import sgd_stream as tsgd_stream
 from ycnr_tpu_torch.ops import layout as tlayout
+from ycnr_tpu_torch.ops import packed as tpacked
+from ycnr_tpu_torch.ops import sgd_wire as tsgd_wire
 from ycnr_tpu_torch.oracle import numpy_mf as toracle
 from ycnr_tpu_torch.serve import cache as tcache
 from ycnr_tpu_torch.train import metrics as tmetrics
@@ -217,6 +224,112 @@ def _ratings_store(m):
         return _store_script(m, d)
 
 
+def _wire_coo(raw: bool):
+    """Ratings for the wire builders: half-stars (the int8 wire) or
+    continuous (the raw f32 wire); a catalog past 2^16 so deltas
+    overflow."""
+    rng = np.random.default_rng(9)
+    u = rng.integers(0, 150, 3000)
+    i = rng.integers(0, 70_000, 3000)
+    r = (rng.standard_normal(3000).astype(np.float32) if raw
+         else rng.integers(1, 11, 3000) / 2.0)
+    return u, i, r
+
+
+_WIRE_KW = dict(rank_hint=8, target_bytes=1 << 16, max_groups=4)
+
+
+def _build_packed(m, raw):
+    u, i, r = _wire_coo(raw)
+    plan_i = m.wire_storage_plan(np.bincount(i, minlength=70_000),
+                                 rank_hint=8, max_groups=4)
+    return (m.build_packed(u, i, r, 150, 70_000, **_WIRE_KW),
+            m.build_packed(i, u, r, 70_000, 150, **_WIRE_KW),
+            m.build_packed(u, i, r, 150, 70_000, other_plan=plan_i,
+                           **_WIRE_KW),
+            plan_i)
+
+
+def _build_packed_stream(m, raw):
+    u, i, r = _wire_coo(raw)
+
+    def portions():
+        for s in range(0, len(u), 777):
+            yield u[s:s + 777], i[s:s + 777], r[s:s + 777]
+
+    plan_u = m.wire_storage_plan(np.bincount(u, minlength=150),
+                                 rank_hint=8, max_groups=4)
+    with tempfile.TemporaryDirectory() as d:
+        disk = m.build_packed_stream(portions(), 150, 70_000,
+                                     portions2=portions(), out_dir=d,
+                                     **_WIRE_KW)
+        disk = [tuple(np.array(x) if isinstance(x, np.ndarray) else x
+                      for x in g) for g in disk]
+    return (m.build_packed_stream(portions(), 150, 70_000,
+                                  portions2=portions(), **_WIRE_KW),
+            disk,
+            m.build_packed_stream(portions(), 70_000, 150,
+                                  portions2=portions(), view="other",
+                                  other_plan=plan_u, **_WIRE_KW))
+
+
+def _rect(m, raw):
+    u, i, r = _wire_coo(raw)
+    pk = m.build_packed(u, i, r, 150, 70_000, **_WIRE_KW)
+    with tempfile.TemporaryDirectory() as d:
+        disk = [tuple(np.array(x) if isinstance(x, np.ndarray) else x
+                      for x in m.rect_from_packed(g, out_dir=d, gi=gi))
+                for gi, g in enumerate(pk)]
+    return ([m.rect_from_packed(g) for g in pk], disk,
+            m.build_rect(i, u, r, 70_000, 150, 8, max_groups=3),
+            m.packed_stats(pk, len(r)),
+            [m.rating_wire_kind(x) for x in (r, r[:5] * 0 + 0.5, [300.0])])
+
+
+def _dup_coo():
+    """A COO with repeated (entity, other) pairs of different ratings:
+    the builders keep such pairs in input order."""
+    rng = np.random.default_rng(4)
+    u = rng.integers(0, 40, 3000)
+    i = rng.integers(0, 25, 3000)
+    return u, i, rng.integers(1, 11, 3000) / 2.0
+
+
+def _dup_layouts(m):
+    u, i, r = _dup_coo()
+    if hasattr(m, "build_packed"):
+        return (m.build_packed(u, i, r, 40, 25, rank_hint=8, max_groups=3),
+                m.build_packed(i, u, r, 25, 40, rank_hint=8, max_groups=3))
+    if hasattr(m, "build_bucketed"):
+        return (m.build_bucketed(u, i, r, 40, 25, rank_hint=8, max_groups=3),
+                m.build_bucketed(i, u, r, 25, 40, rank_hint=8))
+    return (m.build_blocked_csr(u, i, r, 40, 25, 8, rank_hint=4),
+            m.build_blocked_csr(i, u, r, 25, 40, 4))
+
+
+def _packages(which):
+    """The sgd_stream / sgd_wire pair of one package."""
+    if which == "jax":
+        return types.SimpleNamespace(ss=jsgd_stream, sw=jsgd_wire)
+    return types.SimpleNamespace(ss=tsgd_stream, sw=tsgd_wire)
+
+
+def _compact(m, grad_mode, raw=False):
+    u, i, r = jsynthetic.synthetic_ratings(80, 40, 1500, true_rank=3,
+                                           seed=5, rating_levels=not raw)
+    data, _ = m.ss.prepare_stream_sgd(u, i, r, 64, 80, 40, seed=2,
+                                      grad_mode=grad_mode, device=False)
+    comp = m.sw.compact_from_stream(data, 40)
+    wide = m.sw.compact_from_stream(data._replace(tile=70_000), 40)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "w.npz")
+        m.sw.save_compact(comp, path)
+        back = m.sw.load_compact(path)
+    return (comp, wide, back, m.sw.decode_compact(comp, np.float32),
+            m.sw.decode_compact(comp, np.float64), comp.nbytes,
+            tuple(m.sw.flat_from_compact(comp)))
+
+
 _CASES = {
     "synthetic_ratings": (jsynthetic, tsynthetic, _synthetic),
     "synthetic_ratings_calibrated": (jsynthetic, tsynthetic, _calibrated),
@@ -234,6 +347,23 @@ _CASES = {
     "metrics_logger": (jmetrics, tmetrics, _metrics_logger),
     "rec_cache": (jcache, tcache, _rec_cache),
     "ratings_store": (jstore, tstore, _ratings_store),
+    "duplicate_pairs_bucketed": (jbucketed, tbucketed, _dup_layouts),
+    "duplicate_pairs_blocked": (jlayout, tlayout, _dup_layouts),
+    "duplicate_pairs_packed": (jpacked, tpacked, _dup_layouts),
+    "build_packed_half": (jpacked, tpacked, lambda m: _build_packed(m, 0)),
+    "build_packed_raw": (jpacked, tpacked, lambda m: _build_packed(m, 1)),
+    "build_packed_stream_half": (jpacked, tpacked,
+                                 lambda m: _build_packed_stream(m, 0)),
+    "build_packed_stream_raw": (jpacked, tpacked,
+                                lambda m: _build_packed_stream(m, 1)),
+    "rect_stats_kinds_half": (jpacked, tpacked, lambda m: _rect(m, 0)),
+    "rect_stats_kinds_raw": (jpacked, tpacked, lambda m: _rect(m, 1)),
+    "compact_sgd_wire_capped": (_packages("jax"), _packages("torch"),
+                                lambda m: _compact(m, "capped")),
+    "compact_sgd_wire_mean": (_packages("jax"), _packages("torch"),
+                              lambda m: _compact(m, "mean")),
+    "compact_sgd_wire_sum_raw": (_packages("jax"), _packages("torch"),
+                                 lambda m: _compact(m, "sum", raw=True)),
 }
 
 

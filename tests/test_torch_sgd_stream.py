@@ -167,7 +167,9 @@ def test_trainer_determinism_reshuffle_and_guards():
 
 def test_host_stream_is_built_but_not_trained():
     """device=False keeps the stream on the host as NumPy, equal to the JAX
-    package's; its out-of-core epoch is not ported and raises."""
+    package's; it is not trained where it lies: its out-of-core epoch
+    moves it to the state's device chunk by chunk and gives the resident
+    epoch's factors bit for bit."""
     u, i, r = synthetic_ratings(60, 30, 700, true_rank=2, seed=4)
     jd, jo = jss.prepare_stream_sgd(u, i, r, B, 60, 30, seed=1,
                                     device=False)
@@ -178,11 +180,15 @@ def test_host_stream_is_built_but_not_trained():
         a, b = getattr(jd, name), getattr(td, name)
         assert isinstance(b, np.ndarray) and a.dtype == b.dtype, name
         np.testing.assert_array_equal(a, b, err_msg=name)
+    dev, _ = tss.prepare_stream_sgd(u, i, r, B, 60, 30, seed=1,
+                                    device="cpu")
     st = tbase.init_state(60, 30, 4, seed=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        tss.StreamSGD().epoch(st, td, 0)
-    with pytest.raises(NotImplementedError, match="compact"):
-        tss.StreamSGD().epoch(st, object(), 0)
+    got = tss.StreamSGD().epoch(st, td, 0)
+    st = tbase.init_state(60, 30, 4, seed=2, device="cpu")
+    ref = tss.StreamSGD().epoch(st, dev, 0)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert isinstance(td.ul, np.ndarray)  # the stream stayed on the host
 
 
 def test_stream_converges_like_the_batched_trainer():

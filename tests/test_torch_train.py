@@ -57,14 +57,19 @@ def test_train_rmse_history_matches_jax(tmp_path, algo):
 
 
 def test_train_refuses_what_is_not_ported():
-    """Every algorithm trains now; what is still missing (a mesh,
-    out-of-core, orbax checkpoints) raises."""
-    for kw in (dict(mesh=MeshConfig(n_shards=2)), dict(ooc=True),
+    """Every algorithm trains now, out of core too; what is still missing
+    (a mesh, orbax checkpoints) raises, and out-of-core batched SGD and
+    BPR raise the reference's ValueError."""
+    for kw in (dict(mesh=MeshConfig(n_shards=2)),
                dict(checkpoint_backend="orbax")):
         for algo in ("als", "sgd", "bpr"):
             with pytest.raises(NotImplementedError):
                 ttrain(dataclasses.replace(CFG, algorithm=algo, **kw),
                        device="cpu")
+    for algo in ("sgd", "bpr"):  # CFG's SGD is batched
+        with pytest.raises(ValueError, match="als/ials"):
+            ttrain(dataclasses.replace(CFG, algorithm=algo, ooc=True),
+                   device="cpu")
 
 
 def test_train_without_a_device_needs_cuda():

@@ -13,9 +13,10 @@
 The subcommands, flags, JSON lines and files are the JAX package's, with
 ``--device`` in place of ``--platform`` (``publish`` takes it too): by
 default the card (``cuda``), ``--device cpu`` for a CPU run; without a card
-the default stops with a message. What is not ported yet stops with one
-line naming the ROADMAP item it waits for: ``train --ooc`` (out-of-core,
-items 5-6), ``--shards > 1`` and ``--distributed`` (the mesh, item 7).
+the default stops with a message. ``train --ooc`` trains out of core
+(``--ooc-wire``, ``--ooc-residency``). What is not ported yet stops with
+one line naming the ROADMAP item it waits for: ``--shards > 1`` and
+``--distributed`` (the mesh, item 7).
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ import sys
 
 from ycnr_tpu_torch.config import get_preset, list_presets
 
-_OOC = ("out-of-core training is not ported yet (ROADMAP Queue 1, items "
-        "5-6)")
 _MESH = ("sharded and multi-host training are not ported yet (ROADMAP "
          "Queue 1, item 7)")
 
@@ -195,11 +194,19 @@ def _add_train_overrides(p):
     p.add_argument("--ckpt-backend", choices=["npz", "orbax"],
                    help="checkpoint array storage (the port writes npz; "
                         "orbax is the JAX package's)")
-    p.add_argument("--ooc", action="store_true", help="not ported (5-6)")
+    p.add_argument("--ooc", action="store_true",
+                   help="out-of-core: keep only the factors resident; "
+                        "ratings live in a compact wire, pinned on the "
+                        "device or streamed from host memory (ALS/iALS, "
+                        "stream SGD)")
     p.add_argument("--ooc-wire", choices=["rect", "packed"], default=None,
-                   help="not ported (items 5-6)")
+                   help="OOC wire format: packed (fewest bytes, default) "
+                        "or rect (padded, gather-free decode)")
     p.add_argument("--ooc-residency", choices=["auto", "device", "host"],
-                   default=None, help="not ported (items 5-6)")
+                   default=None,
+                   help="OOC residency: auto (pin what fits, stream the "
+                        "rest), device (pin all or fail), host (stream "
+                        "all)")
     p.add_argument("--fused-epochs", type=int, metavar="K",
                    help="ALS/iALS: log, checkpoint and early-stop at the "
                         "ends of blocks of K epochs, as the JAX package "
@@ -222,8 +229,6 @@ def _refuse_unported(args):
     """One line, naming the ROADMAP item, for what the port lacks."""
     if args.distributed or args.coordinator or (args.shards or 1) > 1:
         raise SystemExit(f"{args.cmd}: {_MESH}")
-    if args.ooc:
-        raise SystemExit(f"{args.cmd} --ooc: {_OOC}")
     if args.ckpt_backend == "orbax":
         raise SystemExit(f"{args.cmd} --ckpt-backend orbax: orbax is a JAX "
                          f"package; the port writes npz checkpoints")
@@ -304,6 +309,12 @@ def _build_cfg(args):
                           early_stop_min_delta=args.early_stop_delta)
     if getattr(args, "fused_epochs", None):
         cfg = cfg.replace(fused_epochs=args.fused_epochs)
+    if getattr(args, "ooc", False):
+        cfg = cfg.replace(ooc=True)
+    if getattr(args, "ooc_wire", None):
+        cfg = cfg.replace(ooc_wire=args.ooc_wire)
+    if getattr(args, "ooc_residency", None):
+        cfg = cfg.replace(ooc_residency=args.ooc_residency)
     if args.out is not None:
         cfg = cfg.replace(out_dir=args.out)
     elif not cfg.out_dir and not (file_cfg and "out_dir" in file_cfg):

@@ -36,9 +36,18 @@ elements: the kernel's 4-byte path for an odd k + 1 in f32), the
 segment sums are ``models.base.scatter_add_``, whose order is fixed, so the
 same batch order gives the same factors bit for bit.
 
-The out-of-core epoch over a host-resident stream and the compact-wire
-epochs of the JAX module are not ported yet: ``StreamSGD.epoch`` raises
-``NotImplementedError`` for them.
+Out of core, the stream stays in host memory (``prepare_stream_sgd(...,
+device=False)``) and moves to the device in permuted chunks of batches
+(``sgd_stream_epoch_ooc``), or it is encoded as the compact wire of
+``ops/sgd_wire.py`` (5-9 B/rating against 20), which is pinned on the
+device (``sgd_stream_epoch_pinned``: each batch is indexed out of the
+pinned wire and decoded on its own) or streamed the same way
+(``_compact_epoch_ooc``). The chunks move through
+``models/ooc.ChunkStream`` (pinned staging buffers, a side stream; the
+batches of a chunk are gathered in the epoch's order straight into the
+staging buffer). All four forms feed the same batch update, so one batch
+order gives the same factors bit for bit. A short last chunk is shipped as
+it is (the JAX package pads it with no-op batches to one compiled shape).
 
 Random numbers cannot match JAX's: ``StreamSGD.epoch`` draws the batch
 order from ``torch.Generator(device).manual_seed(seed + 7919 *
@@ -54,6 +63,7 @@ import torch
 
 from ycnr_tpu_torch import resolve_device
 from ycnr_tpu_torch.models.base import MFState, scatter_add_
+from ycnr_tpu_torch.models.ooc import ChunkStream, stream_chunks, widen_u16
 from ycnr_tpu_torch.ops.row_gather import row_gather
 
 
@@ -67,7 +77,7 @@ class StreamSGDData(NamedTuple):
     plain slice. ``wu``/``wi`` are the per-row update weights (mask for
     "sum", mask/multiplicity for "mean") — precomputed because batch
     composition is static. With ``device=False`` at prepare time every
-    array is host NumPy (the out-of-core form, not trainable yet).
+    array is host NumPy (the out-of-core form, ``sgd_stream_epoch_ooc``).
     """
 
     ul: torch.Tensor  # [NB, B] int64 local user row in the batch tile
@@ -280,26 +290,188 @@ def _host_order(order) -> list:
     return np.asarray(order).tolist()
 
 
-def stream_epoch_core(state: MFState, ul, ib, rb, wu, wi, u_lo, order,
-                      lam, lr, tile: int) -> MFState:
-    """One epoch over the stream in batch order ``order`` ([NB]
-    permutation — reshuffled per epoch for stochasticity)."""
-    lr, lam_ = float(lr), float(lam)
-    # extended tables: factors with the bias as column k
-    Ue = torch.cat([state.U, state.bu[:, None]], dim=1)
-    Ve = torch.cat([state.V, state.bi[:, None]], dim=1)
-    one_col = _bias_col(Ue)
-    u_lo = np.asarray(u_lo).tolist()
-    for b in _host_order(order):
-        _batch_update(Ue, Ve, state.mu, one_col, lam_, lr, tile,
-                      ul[b], ib[b], rb[b], wu[b], wi[b], u_lo[b])
+def _extended(state: MFState):
+    """The epoch's extended tables: factors with the bias as column k."""
+    return (torch.cat([state.U, state.bu[:, None]], dim=1),
+            torch.cat([state.V, state.bi[:, None]], dim=1))
+
+
+def _split(state: MFState, Ue, Ve) -> MFState:
     k = state.U.shape[1]
     return state._replace(U=Ue[:, :k].contiguous(), V=Ve[:, :k].contiguous(),
                           bu=Ue[:, k].contiguous(), bi=Ve[:, k].contiguous())
 
 
+def stream_epoch_core(state: MFState, ul, ib, rb, wu, wi, u_lo, order,
+                      lam, lr, tile: int) -> MFState:
+    """One epoch over the stream in batch order ``order`` ([NB]
+    permutation — reshuffled per epoch for stochasticity)."""
+    lr, lam_ = float(lr), float(lam)
+    Ue, Ve = _extended(state)
+    one_col = _bias_col(Ue)
+    u_lo = np.asarray(u_lo).tolist()
+    for b in _host_order(order):
+        _batch_update(Ue, Ve, state.mu, one_col, lam_, lr, tile,
+                      ul[b], ib[b], rb[b], wu[b], wi[b], u_lo[b])
+    return _split(state, Ue, Ve)
+
+
 # the JAX package's jitted entry around the core; nothing is compiled here
 sgd_stream_epoch = stream_epoch_core
+
+
+# ------------------------- out-of-core streamed epoch ---------------------
+
+_SGD_CHUNK_TARGET_BYTES = 48 * 2**20
+
+
+def _chunk_batches(arrays, chunk_batches) -> int:
+    """Batches per streamed chunk: ``chunk_batches``, else ~48 MB."""
+    NB = arrays[0].shape[0]
+    if chunk_batches is None:
+        per_batch = sum(int(np.prod(a.shape[1:])) * a.dtype.itemsize
+                        for a in arrays)
+        chunk_batches = _SGD_CHUNK_TARGET_BYTES // per_batch
+    return max(1, min(NB, chunk_batches))
+
+
+def _streamed_chunks(arrays, order, chunk_batches, prefetch, device):
+    """Yield (batch ids, [C, ...] tensors) in ``order``: the batches of each
+    chunk gathered on the host in that order straight into a staging
+    buffer (``np.take``), then moved to ``device``."""
+    order = np.asarray(_host_order(order), np.int64)
+    C = _chunk_batches(arrays, chunk_batches)
+    chunks = ((order[c0:c0 + C], arrays, order[c0:c0 + C])
+              for c0 in range(0, len(order), C))
+    with ChunkStream(device, prefetch) as stream:
+        for sel, ch in stream_chunks(stream, chunks, prefetch):
+            yield sel.tolist(), ch
+
+
+def sgd_stream_epoch_ooc(state: MFState, data: StreamSGDData, order,
+                         lam: float, lr, chunk_batches: int | None = None,
+                         prefetch: int = 2) -> MFState:
+    """One stream-SGD epoch with the stream in host memory (NumPy or
+    memmap: ``prepare_stream_sgd(..., device=False)``). ``order`` is the
+    epoch's [NB] batch permutation; the trajectory equals the resident
+    epoch's under the same order, bit for bit."""
+    lr, lam_ = float(lr), float(lam)
+    Ue, Ve = _extended(state)
+    one_col = _bias_col(Ue)
+    u_lo = np.asarray(data.u_lo).tolist()
+    arrays = [np.asarray(getattr(data, n))
+              for n in ("ul", "ib", "rb", "wu", "wi")]
+    for ids, (ul, ib, rb, wu, wi) in _streamed_chunks(
+            arrays, order, chunk_batches, prefetch, Ue.device):
+        ul, ib = ul.long(), ib.long()
+        rb, wu, wi = (x.to(Ue.dtype) for x in (rb, wu, wi))
+        for j, b in enumerate(ids):
+            _batch_update(Ue, Ve, state.mu, one_col, lam_, lr, data.tile,
+                          ul[j], ib[j], rb[j], wu[j], wi[j], u_lo[b])
+    return _split(state, Ue, Ve)
+
+
+# ------------------- compact-wire epochs (the SGD pin tier) ---------------
+#
+# ops/sgd_wire.CompactStreamSGD encodes the flat stream in 5-9 B/rating.
+# The decode below is the device twin of ops/sgd_wire.decode_compact (the
+# wire builder validates the two agree bit for bit on the host), and it
+# feeds the same _batch_update as the flat epochs. Batches are decoded
+# _DECODE_BATCHES at a time (fewer, larger launches; the decoded copy of
+# 256 batches of 8,192 is ~60 MB), then updated one by one in order.
+
+_COMPACT_NAMES = ("ul", "ilo", "ihi_pos", "ihi_val", "rq", "mu", "mi")
+_DECODE_BATCHES = 256
+
+
+def _decode_compact_batches(ulb, ilob, hp, hv, rqb, mub, mib, n_items: int,
+                            cap: int, grad_mode: str, rating_kind: str,
+                            dtype):
+    """Wire rows of C batches [C, ...] -> the flat (ul, ib, rb, wu, wi)
+    tensors [C, B]. ``ulb`` holds uint16 bits (int16) or tile rows under
+    2^31 (int32)."""
+    ul = (widen_u16(ulb) if ulb.element_size() == 2 else ulb).long()
+    # item ids: low bits + sparse high-bit corrections (index_add_ is exact
+    # on integers; the (0, 0) padding entries add nothing), then each
+    # batch's prefix sum of the deltas (element 0 carries the absolute id)
+    C, B = ilob.shape
+    d = widen_u16(ilob).long().view(-1)
+    base = torch.arange(C, device=d.device) * B
+    d.index_add_(0, (hp.long() + base[:, None]).view(-1),
+                 (hv.long() << 16).view(-1))
+    ib = torch.cumsum(d.view(C, B), 1)
+    mask = (ib < n_items).to(dtype)
+    rb = rqb.to(dtype) * 0.5 if rating_kind == "half" else rqb.to(dtype)
+    if grad_mode == "sum":
+        return ul, ib, rb, mask, mask
+    # weights min(mult, t)/mult, computed EXACTLY as the flat builder (q =
+    # 1/m first, then min(1/q, t) * q * mask) for bitwise parity
+    t = torch.tensor(1.0 if grad_mode == "mean" else cap, dtype=dtype,
+                     device=ul.device)
+
+    def w(menc):
+        q = 1.0 / (widen_u16(menc).to(dtype) + 1.0)
+        return torch.minimum(1.0 / q, t) * q * mask
+
+    return ul, ib, rb, w(mub), w(mib)
+
+
+def _decode_compact_batch(ulb, ilob, hp, hv, rqb, mub, mib, n_items: int,
+                          cap: int, grad_mode: str, rating_kind: str,
+                          dtype):
+    """One batch of wire rows -> the flat (ul, ib, rb, wu, wi) tensors."""
+    dec = _decode_compact_batches(
+        *(x[None] for x in (ulb, ilob, hp, hv, rqb, mub, mib)), n_items,
+        cap, grad_mode, rating_kind, dtype)
+    return tuple(x[0] for x in dec)
+
+
+def _compact_epoch(state: MFState, comp, groups, lam, lr) -> MFState:
+    """The epoch over compact wire batches: ``groups`` yields (batch ids,
+    the seven wire arrays of those batches [n, ...] as tensors)."""
+    lr, lam_ = float(lr), float(lam)
+    Ue, Ve = _extended(state)
+    one_col = _bias_col(Ue)
+    u_lo = np.asarray(comp.u_lo).tolist()
+    for ids, rows in groups:
+        for j0 in range(0, len(ids), _DECODE_BATCHES):
+            dec = _decode_compact_batches(
+                *(a[j0:j0 + _DECODE_BATCHES] for a in rows), state.n_items,
+                comp.cap, comp.grad_mode, comp.rating_kind, Ue.dtype)
+            for j, b in enumerate(ids[j0:j0 + _DECODE_BATCHES]):
+                _batch_update(Ue, Ve, state.mu, one_col, lam_, lr,
+                              comp.tile, *(x[j] for x in dec), u_lo[b])
+    return _split(state, Ue, Ve)
+
+
+def sgd_stream_epoch_pinned(state: MFState, comp, order, lam: float,
+                            lr) -> MFState:
+    """One epoch over a compact wire pinned on the device
+    (``put_compact``): the batches are indexed out of the pinned arrays in
+    ``order``, _DECODE_BATCHES at a time, never as a whole-wire
+    ``a[order]`` copy (that would hold a second wire for the epoch)."""
+    arrs = [getattr(comp, n) for n in _COMPACT_NAMES]
+    order = _host_order(order)
+    dev = comp.ul.device
+
+    def groups():
+        for j0 in range(0, len(order), _DECODE_BATCHES):
+            ids = order[j0:j0 + _DECODE_BATCHES]
+            idx = torch.as_tensor(ids, device=dev)
+            yield ids, [a[idx] for a in arrs]
+
+    return _compact_epoch(state, comp, groups(), lam, lr)
+
+
+def _compact_epoch_ooc(state: MFState, comp, order, lam: float, lr,
+                       chunk_batches: int | None = None,
+                       prefetch: int = 2) -> MFState:
+    """Compact wire in host memory: permuted chunks of batches stream
+    ahead of the updates, as in ``sgd_stream_epoch_ooc``."""
+    arrays = [np.asarray(getattr(comp, n)) for n in _COMPACT_NAMES]
+    return _compact_epoch(
+        state, comp, _streamed_chunks(arrays, order, chunk_batches,
+                                      prefetch, state.U.device), lam, lr)
 
 
 class StreamSGD:
@@ -320,27 +492,31 @@ class StreamSGD:
 
     def epoch(self, state: MFState, data, epoch_idx: int,
               order=None) -> MFState:
-        """``data`` is a device-resident StreamSGDData. A host-resident
-        stream (``device=False``) and the compact wire are the out-of-core
-        forms, which are not ported: they raise."""
-        if not isinstance(data, StreamSGDData):
-            raise NotImplementedError(
-                "the compact-wire stream epochs are not ported yet")
-        if isinstance(data.ul, np.ndarray):
-            raise NotImplementedError(
-                "the out-of-core epoch over a host-resident stream is not "
-                "ported yet: prepare the stream on a device")
+        """``data`` is a StreamSGDData (flat) or ops/sgd_wire's
+        CompactStreamSGD (the compact wire), each resident (tensors) or in
+        host memory (NumPy) — four epochs, one trajectory: the same batch
+        order gives the same factors bit for bit. The batch order is drawn
+        on the state's device."""
         if data.grad_mode != self.grad_mode:
             raise ValueError(
                 f"data was prepared for grad_mode={data.grad_mode!r}; "
                 f"trainer wants {self.grad_mode!r} — re-run "
                 f"prepare_stream_sgd with matching grad_mode")
         if order is None:
-            dev = data.ul.device
+            dev = state.U.device
             gen = torch.Generator(dev).manual_seed(
                 self.seed + 7919 * epoch_idx)
             order = torch.randperm(data.ul.shape[0], generator=gen,
                                    device=dev)
+        lr = self.lr_at(epoch_idx)
+        host = isinstance(data.ul, np.ndarray)
+        if not isinstance(data, StreamSGDData):  # compact wire
+            if host:
+                return _compact_epoch_ooc(state, data, order, self.lam, lr)
+            return sgd_stream_epoch_pinned(state, data, order, self.lam,
+                                           lr)
+        if host:
+            return sgd_stream_epoch_ooc(state, data, order, self.lam, lr)
         return sgd_stream_epoch(state, data.ul, data.ib, data.rb, data.wu,
                                 data.wi, data.u_lo, order, self.lam,
-                                self.lr_at(epoch_idx), data.tile)
+                                lr, data.tile)

@@ -46,6 +46,15 @@ class BucketGroup(NamedTuple):
 BucketedCSR = Tuple[BucketGroup, ...]
 
 
+def entity_order(entity_idx: np.ndarray, other_idx: np.ndarray,
+                 n_other: int) -> np.ndarray:
+    """The (entity, other) order of a COO, ties kept in input order:
+    ``np.lexsort((other_idx, entity_idx))``, computed as one stable
+    argsort of the combined int64 key (the same permutation, about twice
+    as fast). Indices are non-negative int64, checked by the callers."""
+    return np.argsort(entity_idx * (n_other + 1) + other_idx, kind="stable")
+
+
 def _dp_rungs(active_counts: np.ndarray, max_groups: int,
               n_cand: int = 512) -> np.ndarray:
     """Per-entity rung heights: the smallest chosen height >= the entity's
@@ -136,7 +145,7 @@ def build_bucketed(
 
     # sort by (entity, other): within-entity item order is ascending, which
     # improves DRAM locality of the device gather at zero build cost
-    order = np.lexsort((o_all, entity_idx))
+    order = entity_order(entity_idx, o_all, n_other)
     o_sorted = np.ascontiguousarray(o_all[order], np.int32)
     r_sorted = np.ascontiguousarray(r_all[order], np.float32)
     counts = np.bincount(entity_idx, minlength=n_entities).astype(np.int64)

@@ -41,6 +41,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from ycnr_tpu_torch.ops.bucketed import entity_order
+
 
 class BlockedCSR(NamedTuple):
     """Device-friendly blocked chunked-CSR. All fields are arrays (pytree)."""
@@ -107,7 +109,7 @@ def build_blocked_csr(
 
     # group by (entity, other): ascending item order within each entity
     # improves DRAM locality of the device gather at zero build cost
-    order = np.lexsort((other_idx, entity_idx))
+    order = entity_order(entity_idx, other_idx, n_other)
     e_sorted = entity_idx[order]
     o_sorted = other_idx[order]
     r_sorted = rating[order]

@@ -5,9 +5,12 @@ Runs any of the algorithm families from a RunConfig — ALS-WR and iALS on
 the bucketed layout, biased SGD (batched and stream) and BPR — with
 per-epoch held-out RMSE (``1 - hit_rate`` for BPR), JSONL metrics, early
 stopping, checkpoints with resume, warm start, and the factors published
-into shared memory after every epoch (``cfg.publish_shm``). Sharded and
-out-of-core training and orbax checkpoints are not ported yet and are
-refused.
+into shared memory after every epoch (``cfg.publish_shm``). With
+``cfg.ooc`` ALS/iALS train from the packed or RECT rating wire
+(``models/ooc.py``) and stream SGD from the host stream or its compact
+wire (``ops/sgd_wire.py``), pinned on the device or streamed from host
+memory as ``cfg.ooc_residency`` says. Sharded training and orbax
+checkpoints are not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -40,10 +43,25 @@ from ycnr_tpu_torch.models.bucketed_phase import (
     ials_epochs_bucketed,
     uses_fused,
 )
+from ycnr_tpu_torch.models.ooc import (
+    als_epoch_ooc,
+    auto_wire_budget,
+    group_resident,
+    ials_epoch_ooc,
+    wire_nbytes,
+    wire_to_device,
+)
 from ycnr_tpu_torch.models.sgd import BiasedSGD, prepare_sgd_data
 from ycnr_tpu_torch.models.sgd_stream import StreamSGD, prepare_stream_sgd
 from ycnr_tpu_torch.ops.bucketed import build_bucketed
 from ycnr_tpu_torch.ops.layout import pad_coo
+from ycnr_tpu_torch.ops.packed import build_packed, build_rect
+from ycnr_tpu_torch.ops.sgd_wire import (
+    compact_from_stream,
+    compact_resident,
+    put_compact,
+    sgd_wire_budget,
+)
 from ycnr_tpu_torch.train.checkpoint import (
     config_dict,
     load_checkpoint,
@@ -61,8 +79,21 @@ class TrainResult:
 
 
 def _check_supported(cfg: RunConfig):
-    if cfg.mesh.n_shards > 1 or cfg.ooc:
-        raise NotImplementedError("the port trains on one GPU, resident")
+    if cfg.ooc and cfg.ooc_wire not in ("rect", "packed"):
+        raise ValueError(f"ooc_wire must be 'rect' or 'packed', got "
+                         f"{cfg.ooc_wire!r}")
+    if cfg.ooc and cfg.ooc_residency not in ("auto", "device", "host"):
+        raise ValueError(f"ooc_residency must be 'auto', 'device' or "
+                         f"'host', got {cfg.ooc_residency!r}")
+    if cfg.mesh.n_shards > 1:
+        raise NotImplementedError("the port trains on one GPU (sharding "
+                                  "is ROADMAP Queue 1, item 7)")
+    if cfg.ooc and not (cfg.algorithm in ("als", "ials")
+                        or (cfg.algorithm == "sgd"
+                            and cfg.sgd.method == "stream")):
+        raise ValueError("ooc=True supports als/ials and stream-SGD "
+                         "(--sgd-method stream); the batched-SGD/BPR "
+                         "layouts are per-batch device data")
     if cfg.checkpoint_backend != "npz":
         raise NotImplementedError("orbax checkpoints are not ported")
 
@@ -153,12 +184,68 @@ def _bucketed_layouts(cfg: RunConfig, ds: Dataset, params, dtype, device):
                               ds.n_users)))
 
 
-def _epoch_fn(cfg: RunConfig, ds: Dataset, params, dtype, device):
+def _ooc_wire(cfg: RunConfig, ds: Dataset, params, device, metrics):
+    """The user and item rating wire of an out-of-core ALS/iALS run:
+    packed or RECT (``cfg.ooc_wire``), pinned on ``device`` as
+    ``cfg.ooc_residency`` says ("auto": whole groups under
+    ``auto_wire_budget``, largest first; "device": all of it, or an
+    error; "host": none), the rest streamed every epoch."""
+    build = build_rect if cfg.ooc_wire == "rect" else build_packed
+    dul = build(ds.train_u, ds.train_i, ds.train_r, ds.n_users, ds.n_items,
+                params.rank, max_groups=cfg.data.max_groups)
+    dil = build(ds.train_i, ds.train_u, ds.train_r, ds.n_items, ds.n_users,
+                params.rank, max_groups=cfg.data.max_groups)
+    if cfg.ooc_residency != "host":
+        budget = (None if cfg.ooc_residency == "device"
+                  else auto_wire_budget(ds.n_users, ds.n_items, params.rank,
+                                        groups=(dul, dil), device=device))
+        dul, dil, pinned = wire_to_device(dul, dil, budget, device=device)
+        streamed = wire_nbytes(
+            [g for g in (*dul, *dil) if not group_resident(g)])
+        metrics.log(event="ooc_residency", hbm_pinned_bytes=pinned,
+                    streamed_bytes=streamed)
+    return dul, dil
+
+
+def _ooc_stream(cfg: RunConfig, ds: Dataset, params, data, device,
+                metrics):
+    """An out-of-core stream-SGD run's data: the host stream ``data`` as
+    the compact wire, pinned on ``device`` when ``cfg.ooc_residency``
+    allows ("auto": if it fits ``sgd_wire_budget``), else streamed; the
+    flat host stream where the compact wire cannot encode it."""
+    try:
+        comp = compact_from_stream(data, ds.n_items)
+    except ValueError as e:
+        # batch beyond u16, or f64 ratings off the f32 wire
+        metrics.log(event="sgd_wire_fallback", reason=str(e))
+        return data
+    wire_bytes = comp.nbytes  # counted on the host wire
+    if cfg.ooc_residency != "host":
+        budget = (None if cfg.ooc_residency == "device"
+                  else sgd_wire_budget(ds.n_users, ds.n_items, params.rank,
+                                       device=device))
+        if budget is None or wire_bytes <= budget:
+            comp = put_compact(comp, device)
+    metrics.log(event="sgd_wire", format="compact", wire_bytes=wire_bytes,
+                hbm_pinned=compact_resident(comp))
+    return comp
+
+
+def _epoch_fn(cfg: RunConfig, ds: Dataset, params, dtype, device, metrics):
     """``(state, epoch_idx) -> state`` for the configured algorithm, with
-    its training data laid out on ``device``."""
+    its training data laid out on ``device`` (or, out of core, as its
+    wire)."""
     if cfg.algorithm in ("als", "ials"):
-        # single-device fast path: bucketed (segsum-free) layout
         bf16 = params.gather_dtype == "bfloat16"
+        if cfg.ooc:
+            dul, dil = _ooc_wire(cfg, ds, params, device, metrics)
+            if cfg.algorithm == "als":
+                return lambda state, epoch: als_epoch_ooc(
+                    state, dul, dil, cfg.als.lam, gather_bf16=bf16)
+            return lambda state, epoch: ials_epoch_ooc(
+                state, dul, dil, cfg.ials.lam, cfg.ials.alpha,
+                gather_bf16=bf16)
+        # single-device fast path: bucketed (segsum-free) layout
         dul, dil = _bucketed_layouts(cfg, ds, params, dtype, device)
         if cfg.algorithm == "als":
             fn = als_epoch_fn(dul, dil, cfg.als.lam, bf16)
@@ -185,10 +272,13 @@ def _epoch_fn(cfg: RunConfig, ds: Dataset, params, dtype, device):
         gm = "capped" if cfg.sgd.grad_mode == "sum" else cfg.sgd.grad_mode
         trainer = StreamSGD(cfg.sgd.lam, cfg.sgd.lr, cfg.sgd.lr_decay,
                             seed=cfg.seed, grad_mode=gm)
+        # out of core, the stream stays on the host (NumPy)
         data, _ = prepare_stream_sgd(
             ds.train_u, ds.train_i, ds.train_r, cfg.sgd.batch_size,
             ds.n_users, ds.n_items, seed=cfg.seed, dtype=dtype,
-            grad_mode=gm, device=device)
+            grad_mode=gm, device=False if cfg.ooc else device)
+        if cfg.ooc:
+            data = _ooc_stream(cfg, ds, params, data, device, metrics)
     else:
         trainer = BiasedSGD(cfg.sgd.lam, cfg.sgd.lr, cfg.sgd.lr_decay,
                             cfg.sgd.batch_size, seed=cfg.seed,
@@ -234,14 +324,16 @@ def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
                              ds.test_i, n=cfg.topn, max_users=512)
 
     shm_writer = _shm_writer(cfg, state)
-    if cfg.fused_epochs > 1 and cfg.algorithm in ("als", "ials"):
+    # fused_epochs is not applied to out-of-core runs, as in the reference
+    if (cfg.fused_epochs > 1 and cfg.algorithm in ("als", "ials")
+            and not cfg.ooc):
         state = _fused_epoch_blocks(cfg, ds, params, state, start_epoch,
                                     history, dtype, device, test_coo,
                                     train_coo, metrics, out, shm_writer)
         epochs_done = params.epochs  # the blocks ran everything
     else:
         epochs_done = start_epoch
-        epoch_fn = _epoch_fn(cfg, ds, params, dtype, device)
+        epoch_fn = _epoch_fn(cfg, ds, params, dtype, device, metrics)
     for epoch in range(epochs_done, params.epochs):
         t0 = time.time()
         state = epoch_fn(state, epoch)
