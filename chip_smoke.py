@@ -9,7 +9,8 @@ Run from the repository root:  python3 chip_smoke.py
 3. K1 (batched SPD solve) against its plain version in float64, n = 10,
    32, 64, 128, with padding and ill-conditioned (guarded) systems; timed
    beside the plain solve and ``torch.linalg.solve`` at B = 20,000, and
-   alone at B = 8 and B = 256;
+   alone at B = 8 and B = 256, at n = 64 (warp body) and n = 128 (block
+   body);
 4. K2 (fused masked scorer) on one MovieLens-20M-width serving block and
    on one ragged block (rank 10), bf16 and f32 score buffers: within its
    stated bound of its plain version and of a float64 sum, rated and
@@ -101,7 +102,19 @@ Run from the repository root:  python3 chip_smoke.py
     hyperparameters on these arrays (2 epochs, one batch order) in its
     four forms (flat / compact, resident / streamed), bit-equal; and
     ``train --ooc --preset ml20m-als`` on the store of item 17, equal to
-    the resident ``train()``.
+    the resident ``train()``;
+20. the mesh (``parallel/``) on the main path's arrays, written once as an
+    ``.npy`` set and read by real rank processes of the port's launcher:
+    ALS-WR rank 64, bf16 gathers, gram_psum, 4 epochs from the main path's
+    start, at D = 1 over NCCL and D = 2 over gloo (both ranks on cuda:0),
+    the RMSE held to the reference trajectory (1e-3) and to the resident
+    main path (1e-4), trash rows 0, K1 and ``row_gather`` launched on
+    every rank, bytes and host milliseconds of the collectives, peak
+    memory per rank; after the D = 2 run ``sharded_recommend_all`` with
+    K2 on every rank (4,096 lists held to ``recommend_users`` on the
+    gathered state) and one item_sharded epoch; NCCL asked for two ranks
+    on one card raises the port's error; and ``train --shards 2
+    --dist-backend gloo --epochs 2`` from item 17's store.
 
 Every path runs with the kernels' launch counts set to 0 just before it,
 and each kernel must have launched on the paths that use it. Every failed
@@ -293,9 +306,37 @@ def phase_k1(dev) -> dict:
         log(f"K1 n={n} B={small}: kernel "
             f"{graph_ms(lambda: spd_solve_cuda(As, bs), 20):.4f} ms "
             f"(device time, CUDA graph of 20 calls)")
+    # the block body (64 < n <= 128): on no preset's path, timed all the same
+    n = 128
+    A, b, pad = guarded_systems(n, B, seed=n, dev=dev)
+    ref = spd_solve_reference(A.double(), b.double())
+    x = spd_solve_cuda(A, b)
+    sync()
+    n128_abs = (x.double() - ref).abs().max().item()
+    del ref, x
+    plain128 = cuda_ms(lambda: spd_solve_reference(A, b), iters=5)
+    ms128 = cuda_ms(lambda: spd_solve_cuda(A, b), iters=5)
+    lib128 = cuda_ms(lambda: torch.linalg.solve(A, b), iters=5)
+    ms128 = min(ms128, cuda_ms(lambda: spd_solve_cuda(A, b), iters=5))
+    plain128 = min(plain128, cuda_ms(lambda: spd_solve_reference(A, b),
+                                     iters=5))
+    bnd128 = k1_bound_ms(n, B)
+    small = {}
+    for m in (8, 256):
+        As, bs = A[:m].contiguous(), b[:m].contiguous()
+        small[m] = graph_ms(lambda: spd_solve_cuda(As, bs), 20)
+    log(f"K1 n={n} B={B} (block body): kernel {ms128:.4f} ms, plain "
+        f"(torch.linalg.cholesky + cholesky_solve, f32) {plain128:.4f} ms, "
+        f"torch.linalg.solve {lib128:.4f} ms, bound {bnd128[0]:.4f} ms "
+        f"({bnd128[1]}), {100 * bnd128[0] / ms128:.1f}% of it; B=8 "
+        f"{small[8]:.4f} ms, B=256 {small[256]:.4f} ms (device time, CUDA "
+        f"graph of 20 calls); max abs err {n128_abs:.3e}")
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1]}
+            "bound_by": bnd[1],
+            "n128": {"max_abs_err": n128_abs, "ms": ms128,
+                     "plain_ms": plain128, "library_ms": lib128,
+                     "bound_ms": bnd128[0], "bound_by": bnd128[1]}}
 
 
 def phase_k1_wide(dev) -> dict:
@@ -715,6 +756,7 @@ def reset_launches():
 
     for mod in (spd_solve, fused_topn, row_gather, fused_gram):
         mod.launches = 0
+    spd_solve.body_launches.update(dict.fromkeys(spd_solve.body_launches, 0))
     row_gather.take_launches = 0
     gram.guarded_solves = 0
 
@@ -724,6 +766,8 @@ def read_launches() -> dict:
         spd_solve
 
     return {"spd_solve": spd_solve.launches,
+            # K1's block body (64 < n <= 128), counted apart for its row
+            "spd_solve block": spd_solve.body_launches["block"],
             "fused_scores": fused_topn.launches,
             "row_gather": row_gather.launches,
             "take_along_rows": row_gather.take_launches,
@@ -781,7 +825,7 @@ def ids_equal_up_to_ties(ids_a, vals_a, ids_b, vals_b, tol: float) -> bool:
     return True
 
 
-def phase_blocked(dev, tu, ti, tr, user_lay, ul, il, test_coo) -> dict:
+def phase_blocked(dev, user_lay, item_lay, ul, il, test_coo) -> dict:
     """ALSWR (2 epochs) and ImplicitALS (1 epoch) on the blocked layouts
     against the bucketed path (host layouts ul, il) with f32 gathers, from
     init_state(seed=0)."""
@@ -792,19 +836,13 @@ def phase_blocked(dev, tu, ti, tr, user_lay, ul, il, test_coo) -> dict:
                                                       device_bucketed,
                                                       ials_epoch_fn)
     from ycnr_tpu_torch.ops.row_gather import row_gather_cuda
-    from ycnr_tpu_torch.ops.layout import build_blocked_csr
 
     n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
                                                      "rank", "lam"))
-    t0 = time.time()
-    item_lay = build_blocked_csr(ti, tu, tr, n_items, n_users, 32,
-                                 rank_hint=rank)
-    log(f"blocked layouts: item layout built in {time.time() - t0:.1f} s; "
-        f"user blocks {user_lay.other_idx.shape}, item blocks "
-        f"{item_lay.other_idx.shape}")
+    log(f"blocked layouts: user blocks {user_lay.other_idx.shape}, item "
+        f"blocks {item_lay.other_idx.shape}")
     dlu = device_layout(user_lay, torch.float32, dev)
     dli = device_layout(item_lay, torch.float32, dev)
-    del item_lay
 
     # Both sides of the RMSE comparison below run row_gather, so every
     # block's gather is first held to plain indexing, at the shapes and
@@ -1762,8 +1800,8 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
     n_users, n_items, rank, lam, g = (MAIN[k] for k in (
         "n_users", "n_items", "rank", "lam", "groups"))
     nnz = len(tr)
-    out = {"launches": dict.fromkeys(("spd_solve", "fused_gram",
-                                      "row_gather"), 0)}
+    out = {"launches": dict.fromkeys(("spd_solve", "spd_solve block",
+                                      "fused_gram", "row_gather"), 0)}
 
     def count(launches):
         for k in out["launches"]:
@@ -2652,6 +2690,386 @@ def phase_online(state, tu, ti, tr, smi: str) -> dict:
     return {"add": launches, "cold": cl}
 
 
+# ---- the mesh (parallel/): sharded ALS-WR on torch.distributed -------------
+MESH_EPOCHS = 4
+# the sharded run against the resident main path from the same start: the
+# item Grams are summed in another order (all-reduce of per-rank partials)
+MESH_RMSE_TOL = 1e-4
+# a sharded run's factors against the resident blocked run's, as a share of
+# the largest |entry|: the item Grams sum in another order, which a bf16
+# gather can turn into a step of one bf16 ulp (2^-8) of a row; the
+# wire-order storage check of the ooc phase holds the same kind of
+# difference to the same bound
+MESH_FACTOR_TOL = 1e-2
+MESH_SAMPLE = 4096  # users whose sharded lists are held to recommend_users
+
+
+def mesh_rank(mesh, tu, ti, tr, su, si, sr, ref_U, ref_V, epochs: int,
+              serve: bool = False, dual: bool = False) -> dict:
+    """One rank process of the mesh phase (``spawn_ranks`` runs it):
+    ALS-WR rank 64, lam 0.05, bf16 gathers, gram_psum, from the main path's
+    start (``init_state(seed=0)``, cold rows zeroed as ``train()`` does),
+    on the ML-20M arrays (memory-mapped .npy). Per epoch: seconds (device
+    synchronized), held-out RMSE, bytes through the collectives and their
+    host time (``Mesh.timed``); epoch 3 on rank 0 under ``torch.profiler``
+    (device time by kernel). With ``serve``: ``sharded_recommend_all``
+    fused (K2 on every rank) and exact, held on rank 0 to the single-GPU
+    ``recommend_users`` on the gathered state for MESH_SAMPLE users. With
+    ``dual``: one item_sharded epoch from the same start. Every rank's
+    kernel launches and peak device memory are gathered; rank 0 returns
+    the lot. Rank 0 also holds the gathered factors to the resident
+    blocked run's (``ref_U``, ``ref_V``, from ``mesh_reference``): the
+    largest |difference| over the largest |entry|, and the largest over
+    rows of |row difference| / |row|."""
+    import ycnr_tpu_torch
+    from ycnr_tpu_torch.eval.recommend import build_rated_bits, \
+        recommend_users
+    from ycnr_tpu_torch.models.base import init_state, zero_cold_entities
+    from ycnr_tpu_torch.parallel import shard as sh
+    from ycnr_tpu_torch.parallel.mesh import collective_check
+
+    ycnr_tpu_torch.full_precision_matmul()
+    dev = mesh.device
+    out = {"collectives": collective_check(mesh), "world": mesh.world,
+           "backend": mesh.backend}
+    n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
+                                                     "rank", "lam"))
+    t0 = time.time()
+    host, meta = sh.build_sharded_data(
+        tu, ti, tr, n_users, n_items, mesh.world, chunk_len=32,
+        rank_hint=rank, test_u=su, test_i=si, test_r=sr,
+        host_user_layout=serve, algo="als")
+    out["build_s"] = time.time() - t0
+    data = sh.put_shard(host, mesh)
+    del host
+
+    def start():
+        return zero_cold_entities(init_state(n_users, n_items, rank, seed=0,
+                                             device=dev), tu, ti)
+
+    st = sh.scatter_state(start(), meta, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh.timed = True
+    reset_launches()
+    out.update(rmse=[], s=[], bytes=[], coll_s=[])
+    for ep in range(epochs):
+        b0, c0 = mesh.bytes_moved, mesh.collective_s
+        sync()
+        t0 = time.time()
+        if ep == 2 and mesh.rank == 0:  # epoch 3, rank 0: device time
+            st, out["dev_ms_epoch3"] = profile_breakdown(
+                lambda: sh.sharded_als_epoch(mesh, st, data, lam,
+                                             gather_bf16=True),
+                f"sharded epoch 3, rank 0 of {mesh.world}")
+        else:
+            st = sh.sharded_als_epoch(mesh, st, data, lam, gather_bf16=True)
+        sync()
+        out["s"].append(time.time() - t0)
+        out["bytes"].append(mesh.bytes_moved - b0)
+        out["coll_s"].append(mesh.collective_s - c0)
+        out["rmse"].append(sh.sharded_rmse(mesh, st, data, meta.test_n))
+    trash = bool((st.U[-1] == 0).all()) and bool((st.V[-1] == 0).all())
+    train_ln = read_launches()
+    g = sh.gather_state(st, meta, mesh)
+    if mesh.rank == 0:
+        out["factor_diff"] = {
+            name: factor_diff(F[:-1], torch.as_tensor(np.array(ref),
+                                                      device=dev))
+            for name, F, ref in (("U", g.U, ref_U), ("V", g.V, ref_V))}
+    if serve:
+        bits = build_rated_bits(meta.user_layout_host, n_items)
+        reset_launches()
+        sync()
+        t0 = time.time()
+        uf, idf, _ = sh.sharded_recommend_all(mesh, st, data, meta, 10, bits,
+                                              method="fused")
+        sync()
+        out["serve_fused_s"] = time.time() - t0
+        serve_ln = read_launches()
+        ue, ide, sce = sh.sharded_recommend_all(mesh, st, data, meta, 10,
+                                                bits, method="exact")
+        if mesh.rank == 0:
+            out.update(mesh_serve_check(g, tu, ti, uf, idf, ue, ide, sce))
+    if dual:
+        from ycnr_tpu_torch.parallel import dual as du
+
+        t0 = time.time()
+        host, dmeta = du.build_dual_sharded_data(
+            tu, ti, tr, n_users, n_items, mesh.world, chunk_len=32,
+            rank_hint=rank, test_u=su, test_i=si, test_r=sr)
+        out["dual_build_s"] = time.time() - t0
+        ddata = sh.put_shard(host, mesh)
+        del host
+        dst = du.dual_scatter_state(start(), dmeta, mesh)
+        b0, c0 = mesh.bytes_moved, mesh.collective_s
+        sync()
+        t0 = time.time()
+        dst = du.dual_als_epoch(mesh, dst, ddata, lam, gather_bf16=True)
+        sync()
+        out["dual"] = {"s": time.time() - t0,
+                       "bytes": mesh.bytes_moved - b0,
+                       "coll_s": mesh.collective_s - c0,
+                       "rmse": du.dual_rmse(mesh, dst, ddata, dmeta.test_n),
+                       "trash": bool((dst.U[-1] == 0).all())
+                       and bool((dst.V[-1] == 0).all())}
+    per = torch.tensor([train_ln["spd_solve"], train_ln["row_gather"],
+                        serve_ln["fused_scores"] if serve else 0,
+                        torch.cuda.max_memory_allocated(dev), float(trash),
+                        train_ln["spd_solve block"]],
+                       dtype=torch.float64, device=dev)
+    out["per_rank"] = [x.tolist() for x in mesh.all_gather(per)]
+    return out
+
+
+def factor_diff(F, ref) -> dict:
+    """F against ref (real rows only): the largest |F - ref| over the
+    largest |ref|, and the largest over rows with a nonzero ref row of
+    |F_row - ref_row| / |ref_row| (2-norms)."""
+    d = (F - ref).double()
+    ref = ref.double()
+    norm = ref.norm(dim=1)
+    live = norm > 0
+    return {"scale": float(d.abs().max() / ref.abs().max()),
+            "row": float((d.norm(dim=1)[live] / norm[live]).max())}
+
+
+def mesh_reference(dev, tu, ti, su, si, sr, lays, tmp: str) -> dict:
+    """The resident run the mesh is held to: ALS-WR on one device over the
+    host blocked layouts ``lays`` (user, item: the layout kind the sharded
+    path runs; the main path runs the bucketed one), bf16 gathers,
+    ``solve_block`` a block as ``models/als.py`` walks it, MESH_EPOCHS
+    epochs from the mesh ranks' start. Returns its held-out RMSE an epoch
+    and the paths of its final U and V (real rows), written as .npy for
+    the rank processes."""
+    from ycnr_tpu_torch.models.base import (device_layout, init_state,
+                                            rmse_padded, zero_cold_entities)
+    from ycnr_tpu_torch.ops.gram import BlockData, solve_block
+    from ycnr_tpu_torch.ops.layout import pad_coo
+
+    n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
+                                                     "rank", "lam"))
+    lu, li = (device_layout(x, torch.float32, dev) for x in lays)
+    test_coo = tuple(torch.as_tensor(x, device=dev) for x in
+                     pad_coo(su, si, sr, n_users, n_items, 8192)[:3]) + (
+        len(sr),)
+    st = zero_cold_entities(init_state(n_users, n_items, rank, seed=0,
+                                       device=dev), tu, ti)
+
+    def phase(E, F, lay):
+        for blk in zip(*lay):
+            eid, rows = solve_block(F, BlockData(*blk), lam,
+                                    gather_bf16=True)
+            E[eid] = rows
+
+    rmse, secs = [], []
+    for _ in range(MESH_EPOCHS):
+        sync()
+        t0 = time.time()
+        phase(st.U, st.V, lu)
+        phase(st.V, st.U, li)
+        sync()
+        secs.append(time.time() - t0)
+        rmse.append(float(rmse_padded(st, *test_coo)))
+    paths = {}
+    for name, F in (("ref_U", st.U), ("ref_V", st.V)):
+        paths[name] = os.path.join(tmp, f"mesh_{name}.npy")
+        np.save(paths[name], F[:-1].cpu().numpy())
+    log(f"mesh: resident blocked reference (one device, bf16 gathers): "
+        f"rmse {[round(x, 6) for x in rmse]}, "
+        f"s/epoch {[round(x, 4) for x in secs]}")
+    return {"rmse": rmse, "paths": paths}
+
+
+def mesh_serve_check(g, tu, ti, uf, idf, ue, ide, sce) -> dict:
+    """Rank 0: the sharded lists of MESH_SAMPLE users against the
+    single-GPU recommend_users on the gathered state: exact ids equal up to
+    f32 ties, fused picks within one bf16 step of the exact 10th score on
+    the bf16-rounded factors (as the main path holds K2)."""
+    from ycnr_tpu_torch.eval.recommend import recommend_users, \
+        sort_ratings_by_user
+
+    n_rated = int(np.unique(np.asarray(tu)).size)
+    rng = np.random.default_rng(2)
+    pick = np.sort(rng.choice(len(ue), MESH_SAMPLE, replace=False))
+    users = ue[pick]
+    pos_f = {int(x): j for j, x in enumerate(uf)}
+    fpick = np.array([pos_f[int(x)] for x in users])
+    index = sort_ratings_by_user(tu, ti)
+    ids, vals = recommend_users(g, tu, ti, users, 10, sorted_index=index)
+    exact_same = ids_equal_up_to_ties(ide[pick], sce[pick], ids, vals,
+                                      tol=TIE_TOL)
+    g16 = g._replace(U=g.U.bfloat16().float(), V=g.V.bfloat16().float())
+    _, v16 = recommend_users(g16, tu, ti, users, 10, sorted_index=index)
+    U16 = g16.U.double().cpu().numpy()
+    V16 = g16.V.double().cpu().numpy()
+    true_f = np.einsum("uk,unk->un", U16[users], V16[idf[fpick]])
+    nth = v16[:, -1:].astype(np.float64)
+    within = true_f >= nth - BF16_REL * np.abs(nth) - TIE_TOL
+    return {"served": len(ue), "served_fused": len(uf), "n_rated": n_rated,
+            "exact_same": bool(exact_same),
+            "fused_within": float(within.mean())}
+
+
+def phase_mesh(dev, tu, ti, tr, su, si, sr, lays, main_rmse, tmp: str,
+               smi: str) -> dict:
+    """Sharded ALS-WR (parallel/) on the ML-20M arrays in real rank
+    processes started by the port's launcher, the arrays written once as
+    one .npy set: D = 1 over NCCL on cuda:0, D = 2 over gloo with both
+    ranks on cuda:0 (then the serving pass with K2 on every rank and one
+    item_sharded epoch), and NCCL asked for two ranks on one card, which
+    must raise the port's error and run nothing."""
+    from ycnr_tpu_torch.config import MeshConfig, get_preset
+    from ycnr_tpu_torch.data.dataset import Dataset
+    from ycnr_tpu_torch.parallel.mesh import spawn_ranks
+    from ycnr_tpu_torch.train.loop import train
+
+    paths = {}
+    t0 = time.time()
+    for k, a in dict(tu=tu, ti=ti, tr=tr, su=su, si=si, sr=sr).items():
+        paths[k] = os.path.join(tmp, f"mesh_{k}.npy")
+        np.save(paths[k], a)
+    log(f"mesh: the arrays written as one .npy set in "
+        f"{time.time() - t0:.1f} s")
+    ref = mesh_reference(dev, tu, ti, su, si, sr, lays, tmp)
+    paths.update(ref["paths"])
+
+    cfg = get_preset("ml20m-als").replace(mesh=MeshConfig(n_shards=2),
+                                          out_dir=None)
+    ds = Dataset(n_users=MAIN["n_users"], n_items=MAIN["n_items"],
+                 train_u=tu, train_i=ti, train_r=tr, test_u=su, test_i=si,
+                 test_r=sr, mu=0.0)
+    try:
+        train(cfg, ds, device=dev, backend="nccl")
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "--dist-backend gloo" in refused,
+          "NCCL with two ranks on one card raises the port's error")
+    log(f"mesh: check passed: NCCL with 2 ranks on {torch.cuda.device_count()}"
+        f" card(s) raised ({refused!r}) and ran nothing")
+
+    runs = {}
+    for name, world, backend, kw in (
+            ("D=1 nccl", 1, "nccl", {}),
+            ("D=2 gloo", 2, "gloo", dict(serve=True, dual=True))):
+        t0 = time.time()
+        res = spawn_ranks("chip_smoke:mesh_rank", world, backend=backend,
+                          device="cuda", arrays=paths,
+                          kwargs=dict(epochs=MESH_EPOCHS, **kw))
+        res["wall_s"] = time.time() - t0
+        runs[name] = res
+        check(res["collectives"]["ok"], f"mesh {name}: all-reduce, "
+              f"all-gather and broadcast of CUDA tensors")
+        log(f"mesh {name}: {world} rank process(es), {res['wall_s']:.1f} s "
+            f"wall (host build {res['build_s']:.1f} s on each rank); "
+            f"collectives on {res['collectives']['device']} over "
+            f"{res['backend']}")
+        for ep, (r, want, m, b) in enumerate(zip(
+                res["rmse"], ANCHOR_RMSE, main_rmse, ref["rmse"])):
+            log(f"mesh {name} epoch {ep + 1}: {res['s'][ep]:.4f} s, "
+                f"held-out rmse {r:.6f} (resident blocked {b:.6f}, |diff| "
+                f"{abs(r - b):.2e}; resident main path {m:.6f}, |diff| "
+                f"{abs(r - m):.2e}); {res['bytes'][ep]:,} bytes "
+                f"through collectives, {1e3 * res['coll_s'][ep]:.1f} ms in "
+                f"them (host clock, device synchronized around each)")
+            check(abs(r - want) <= RMSE_TOL,
+                  f"mesh {name} epoch {ep + 1}: rmse within {RMSE_TOL} of "
+                  f"{want}")
+            check(abs(r - b) <= MESH_RMSE_TOL,
+                  f"mesh {name} epoch {ep + 1}: rmse within "
+                  f"{MESH_RMSE_TOL} of the resident blocked run")
+            check(abs(r - m) <= MESH_RMSE_TOL,
+                  f"mesh {name} epoch {ep + 1}: rmse within "
+                  f"{MESH_RMSE_TOL} of the resident main path")
+        for side, fd in res["factor_diff"].items():
+            log(f"mesh {name}: gathered {side} after {MESH_EPOCHS} epochs "
+                f"against the resident blocked run's: largest |diff| "
+                f"{fd['scale']:.3e} of the largest |entry|; largest row "
+                f"|diff| / |row| {fd['row']:.3e}")
+            check(fd["scale"] <= MESH_FACTOR_TOL,
+                  f"mesh {name}: {side} within {MESH_FACTOR_TOL} of the "
+                  f"largest |entry| of the resident blocked run's")
+            check(fd["row"] <= MESH_FACTOR_TOL,
+                  f"mesh {name}: every row of {side} within "
+                  f"{MESH_FACTOR_TOL} of its norm in the resident blocked "
+                  f"run")
+        wall = (res["s"][1] + res["s"][3]) / 2
+        log(f"mesh {name}: s/epoch, epochs 2 and 4: {res['s'][1]:.4f} "
+            f"{res['s'][3]:.4f} (epoch 3 profiled); rank 0's device time in "
+            f"epoch 3 {res['dev_ms_epoch3']:.2f} ms = "
+            f"{res['dev_ms_epoch3'] / 1e3 / wall:.3f} of that wall; on {smi}")
+        for r, (k1, rg, k2, peak, trash, _) in enumerate(res["per_rank"]):
+            log(f"mesh {name} rank {r}: K1 {int(k1)}, row_gather {int(rg)}, "
+                f"K2 {int(k2)} launches; peak device memory {int(peak):,} "
+                f"bytes; trash rows 0: {bool(trash)}")
+            check(k1 > 0 and rg > 0, f"mesh {name} rank {r}: K1 and "
+                  f"row_gather launched")
+            check(bool(trash), f"mesh {name} rank {r}: trash rows exactly 0")
+    two = runs["D=2 gloo"]
+    for r, row in enumerate(two["per_rank"]):
+        check(row[2] > 0, f"mesh serving rank {r}: K2 launched")
+    check(two["served"] == two["served_fused"] == two["n_rated"],
+          "mesh serving: every rated user served")
+    check(two["exact_same"], "mesh serving: exact lists equal "
+          "recommend_users' on the gathered state up to f32 ties")
+    check(two["fused_within"] == 1.0, "mesh serving: fused picks within "
+          "one bf16 step of the exact 10th score")
+    log(f"mesh serving (D=2): {two['served']:,} users, fused pass "
+        f"{two['serve_fused_s']:.3f} s wall; {MESH_SAMPLE} sampled lists: "
+        f"exact equal up to ties, fused within one bf16 step: "
+        f"{two['fused_within']:.5f}")
+    d = two["dual"]
+    log(f"mesh item_sharded (D=2) epoch 1: {d['s']:.4f} s, rmse "
+        f"{d['rmse']:.6f} (gram_psum {two['rmse'][0]:.6f}); "
+        f"{d['bytes']:,} bytes through collectives, "
+        f"{1e3 * d['coll_s']:.1f} ms in them; host build "
+        f"{two['dual_build_s']:.1f} s")
+    check(abs(d["rmse"] - two["rmse"][0]) <= MESH_RMSE_TOL,
+          "mesh item_sharded epoch 1 within the tolerance of gram_psum's")
+    check(d["trash"], "mesh item_sharded: trash rows exactly 0")
+    launches = {"spd_solve": 0, "spd_solve block": 0, "row_gather": 0,
+                "fused_scores": 0}
+    for res in runs.values():
+        for k1, rg, k2, _, _, k1_block in res["per_rank"]:
+            launches["spd_solve"] += int(k1)
+            launches["spd_solve block"] += int(k1_block)
+            launches["row_gather"] += int(rg)
+            launches["fused_scores"] += int(k2)
+    return {"launches": launches, "runs": runs}
+
+
+def phase_mesh_cli(cli: dict, main_rmse, tmp: str, smi: str):
+    """python -m ycnr_tpu_torch train --preset ml20m-als --shards 2
+    --dist-backend gloo --epochs 2, in process, on the CLI phase's store
+    and split: two rank processes on cuda:0, metrics with shards=2, the
+    trajectory of the resident main path."""
+    import io
+
+    from ycnr_tpu_torch.cli import main as cli_main
+
+    out = os.path.join(tmp, "mesh_runs")
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        cli_main(["train", "--preset", "ml20m-als", "--config",
+                  cli["cfg_file"], "--store", cli["store"], "--epochs", "2",
+                  "--shards", "2", "--dist-backend", "gloo", "--out", out])
+    wall = time.time() - t0
+    last = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ev = [e for e in read_events(os.path.join(out, "ml20m-als"))
+          if "rmse_test" in e]
+    check(last["epochs"] == 2 and [e["shards"] for e in ev] == [2, 2],
+          "cli train --shards 2: two epochs, shards=2 on every line")
+    for e, m in zip(ev, main_rmse):
+        check(abs(e["rmse_test"] - m) <= MESH_RMSE_TOL,
+              f"cli train --shards 2 epoch {e['epoch']}: rmse within "
+              f"{MESH_RMSE_TOL} of the resident run")
+    log(f"cli train --shards 2 --dist-backend gloo: {wall:.1f} s wall; "
+        f"rmse {[e['rmse_test'] for e in ev]}, s/epoch "
+        f"{[e['epoch_s'] for e in ev]}; on {smi}")
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2857,8 +3275,13 @@ def run(dev):
 
     # ---- blocked-layout path vs the bucketed path (f32 gathers) --------
     del dul, dil, epoch
-    blocked_launches = phase_blocked(dev, tu, ti, tr, lay, ul, il, test_coo)
-    del lay, dlay, bits, eids
+    t0 = time.time()
+    item_lay = build_blocked_csr(ti, tu, tr, n_items, n_users, 32,
+                                 rank_hint=rank)
+    log(f"blocked item layout built in {time.time() - t0:.1f} s (host; kept "
+        f"with the user layout for the mesh phase's resident run)")
+    blocked_launches = phase_blocked(dev, lay, item_lay, ul, il, test_coo)
+    del dlay, bits, eids
     sync()
 
     # ---- fold-in ---------------------------------------------------------
@@ -2893,6 +3316,11 @@ def run(dev):
             sync()
             ooc = phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il,
                             {"by_kernel": main_by_kernel}, cli, smi, tmp)
+            sync()
+            mesh = phase_mesh(dev, tu, ti, tr, su, si, sr, (lay, item_lay),
+                              rmse, tmp, smi)
+            del lay, item_lay
+            phase_mesh_cli(cli, rmse, tmp, smi)
     finally:  # a name already unlinked is a no-op
         get_shm_lib().ycnr_shm_unlink(names["train"].encode())
         get_shm_lib().ycnr_shm_unlink(names["serve"].encode())
@@ -2939,7 +3367,8 @@ def run(dev):
          "source": "ycnr_tpu_torch/csrc/spd_solve.cu",
          "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
          "launches": launches["spd_solve"] + serve["train"]["spd_solve"]
-         + serve["cold"]["spd_solve"] + ooc["launches"]["spd_solve"],
+         + serve["cold"]["spd_solve"] + ooc["launches"]["spd_solve"]
+         + mesh["launches"]["spd_solve"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
@@ -2947,7 +3376,8 @@ def run(dev):
          "source": "ycnr_tpu_torch/csrc/fused_topn.cu",
          "replaces": "ycnr_tpu/ops/pallas_topn.py:100",
          "launches": launches["fused_scores"] + bpr["k2_launches"]
-         + serve["precompute"]["fused_scores"],
+         + serve["precompute"]["fused_scores"]
+         + mesh["launches"]["fused_scores"],
          "max_abs_err": max(k2["bf16"]["max_abs_err"],
                             k2["f32"]["max_abs_err"]),
          "ms": k2["bf16"]["ms"], "plain_ms": k2["bf16"]["plain_ms"],
@@ -2961,7 +3391,7 @@ def run(dev):
          "launches": blocked_launches["row_gather"]
          + fold_launches["row_gather"] + online["add"]["row_gather"]
          + online["cold"]["row_gather"] + serve["cold"]["row_gather"]
-         + ooc["launches"]["row_gather"],
+         + ooc["launches"]["row_gather"] + mesh["launches"]["row_gather"],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]},
@@ -2996,6 +3426,16 @@ def run(dev):
          "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
          "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
          "bound_by": gram["bound_by"], "library_ms": None},
+    ] + [
+        # K1's block body (64 < n <= 128), with its launches on the paths
+        # the spd_solve row counts
+        {"name": "K1 n128", "route": "cuda",
+         "source": "ycnr_tpu_torch/csrc/spd_solve.cu",
+         "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
+         "launches": sum(ln["spd_solve block"] for ln in (
+             launches, serve["train"], serve["cold"], ooc["launches"],
+             mesh["launches"])),
+         **k1["n128"]},
     ] + [
         # K1's packed-triangle body, with the launches of the rank-192 path
         # (train() and fold-in) and of fold-in at rank 256

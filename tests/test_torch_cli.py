@@ -8,8 +8,10 @@ agree to the printed digit; a checkpoint written by one package's
 ``export``. Shared-memory segments hold float32: ``publish`` /
 ``recommend --shm`` are held to ``recommend --ckpt`` on a float32
 checkpoint. Where the JAX package needs its shm libraries, they are built
-from its sources into a temporary directory. The commands not ported yet
-stop with one line naming their ROADMAP item. ``train --ooc`` (out of
+from its sources into a temporary directory. ``train --shards 2`` runs two gloo rank
+processes and equals the JAX package's sharded ``train``; what is not
+ported yet (out of core on a mesh) stops with one line naming its ROADMAP
+item. ``train --ooc`` (out of
 core) is held to the resident ``train`` and to ``ycnr_tpu.cli``'s
 ``--ooc``."""
 
@@ -423,16 +425,66 @@ def test_train_ooc_rejects_batched_sgd(trained, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--ooc", "--shards", "2"], "item 7"),
-    (["train", "--shards", "2"], "item 7"),
-    (["train", "--distributed"], "item 7"),
-    (["tune", "--lams", "0.1", "--shards", "4"], "item 7"),
+    (["train", "--ooc", "--shards", "2"], "item 9"),
 ])
 def test_unported_commands_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit) as e:
         tmain(argv + ["--device", "cpu"])
     assert "not ported yet" in str(e.value) and item in str(e.value)
-    assert "\n" not in str(e.value)
+    assert "ooc_mesh" in str(e.value) and "\n" not in str(e.value)
+
+
+def test_config_file_ooc_on_a_mesh_names_its_item(tmp_path):
+    cfg = _f64(tmp_path, {"ooc": True, "mesh": {"n_shards": 2}})
+    with pytest.raises(SystemExit, match="item 9"):
+        tmain(["train", "--config", cfg, "--device", "cpu"])
+
+
+def test_train_sharded_matches_jax(trained, tmp_path, capsys):
+    """``train --shards 2 --dist-backend gloo --device cpu``: two rank
+    processes over gloo. The metrics (``shards=2`` on every epoch line)
+    and the printed result equal ``ycnr_tpu.cli``'s ``train --shards 2``
+    on the same store, and each package's ``validate`` reads the sharded
+    checkpoint."""
+    common = ["train", "--preset", "ml100k-als", "--store",
+              trained["store"], "--epochs", "3", "--rank", "6", "--config",
+              _f64(tmp_path), "--shards", "2"]
+    j = jrun(capsys, *common, "--out", str(tmp_path / "j"))[-1]
+    t = trun(capsys, *common, "--dist-backend", "gloo", "--out",
+             str(tmp_path / "t"))[-1]
+    assert {**t, "out_dir": 0, "final_rmse": 0} == \
+        {**j, "out_dir": 0, "final_rmse": 0}
+    assert abs(t["final_rmse"] - j["final_rmse"]) < 1e-9  # sum order
+    drop = ("t", "epoch_s")
+    tm, jm = (
+        [{k: v for k, v in r.items() if k not in drop} for r in
+         _metrics(str(tmp_path / p / "ml100k-als"))] for p in ("t", "j"))
+    assert tm == jm and [r["shards"] for r in tm] == [2, 2, 2]
+    ckpt = str(tmp_path / "t" / "ml100k-als" / "ckpt")
+    argv = ["validate", "--ckpt", ckpt, "--store", trained["store"]]
+    got = trun(capsys, *argv)[-1]
+    assert got == jrun(capsys, *argv)[-1] and got["epoch"] == 3
+
+
+def test_distributed_flags_join_the_group(monkeypatch, capsys):
+    """``train --coordinator h:99 --num-processes 2 --process-id 1``
+    reaches init_process_group as tcp://h:99, world 2, rank 1, over the
+    named backend, and prints the reference's distributed event."""
+    import torch.distributed as dist
+
+    calls = {}
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.update(backend=backend,
+                                                           **kw))
+    monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 1)
+    with pytest.raises(BaseException):
+        # stops after the join: an unknown preset
+        tmain(["train", "--coordinator", "h:99", "--num-processes", "2",
+               "--process-id", "1", "--preset", "nope", "--device", "cpu"])
+    assert calls == {"backend": "gloo", "init_method": "tcp://h:99",
+                     "world_size": 2, "rank": 1}
+    event = json.loads(capsys.readouterr().out.strip().splitlines()[0])
+    assert event == {"event": "distributed", "process_id": 1}
 
 
 @pytest.mark.parametrize("argv", [

@@ -1,6 +1,7 @@
 """Every example of the port (``ycnr_tpu_torch/examples``) runs on the CPU
 with ``--device cpu`` and prints the marker that ``tests/test_examples.py``
-looks for in the JAX package's script of the same name."""
+looks for in the JAX package's script of the same name
+(``sharded_train`` starts 8 gloo rank processes)."""
 
 import os
 import subprocess
@@ -18,6 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ("model_lifecycle", "served grown-catalog cohort OK"),
     ("tune_and_similar", "cache hits OK"),
     ("bpr_ranking", "pairwise lift"),
+    ("sharded_train", "gathered factors"),
 ])
 def test_example_runs(name, marker):
     p = subprocess.run(

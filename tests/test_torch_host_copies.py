@@ -29,6 +29,9 @@ from ycnr_tpu.ops import layout as jlayout
 from ycnr_tpu.ops import packed as jpacked
 from ycnr_tpu.ops import sgd_wire as jsgd_wire
 from ycnr_tpu.oracle import numpy_mf as joracle
+from ycnr_tpu.parallel import dual as jdual
+from ycnr_tpu.parallel import sgd_stream as jpsgd
+from ycnr_tpu.parallel import shard as jshard
 from ycnr_tpu.serve import cache as jcache
 from ycnr_tpu.train import metrics as jmetrics
 from ycnr_tpu_torch import config as tconfig
@@ -43,6 +46,9 @@ from ycnr_tpu_torch.ops import layout as tlayout
 from ycnr_tpu_torch.ops import packed as tpacked
 from ycnr_tpu_torch.ops import sgd_wire as tsgd_wire
 from ycnr_tpu_torch.oracle import numpy_mf as toracle
+from ycnr_tpu_torch.parallel import dual as tdual
+from ycnr_tpu_torch.parallel import sgd_stream as tpsgd
+from ycnr_tpu_torch.parallel import shard as tshard
 from ycnr_tpu_torch.serve import cache as tcache
 from ycnr_tpu_torch.train import metrics as tmetrics
 from test_torch_shm import build_jax_library
@@ -330,6 +336,81 @@ def _compact(m, grad_mode, raw=False):
             tuple(m.sw.flat_from_compact(comp)))
 
 
+def _parallel(which):
+    """The parallel/ host builders of one package."""
+    if which == "jax":
+        return types.SimpleNamespace(sh=jshard, ss=jpsgd, du=jdual)
+    return types.SimpleNamespace(sh=tshard, ss=tpsgd, du=tdual)
+
+
+def _np_tree(x):
+    """A builder's output as plain NumPy: arrays (JAX's or NumPy's) as
+    ndarrays, NamedTuples as tuples, dataclasses as dicts."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: _np_tree(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, (tuple, list)):
+        return tuple(_np_tree(v) for v in x)
+    if hasattr(x, "__array__") and not isinstance(x, np.ndarray):
+        return np.asarray(x)
+    return x
+
+
+def _sharded_coo():
+    u, i, r = jsynthetic.synthetic_ratings(90, 50, 2500, true_rank=3,
+                                           seed=8)
+    (tu, ti, tr), (su, si, sr) = jsplit.train_test_split(u, i, r, 0.1, 8)
+    # users 80-89 and item 49 hold no training rating (zero degree)
+    keep = (tu < 80) & (ti < 49)
+    return (tu[keep], ti[keep], tr[keep]), (su, si, sr)
+
+
+def _sharded_data(m, algo, D=3, host=True, f64=False):
+    (tu, ti, tr), (su, si, sr) = _sharded_coo()
+    dt = np.float64 if f64 else np.float32
+    return _np_tree(m.sh.build_sharded_data(
+        tu, ti, tr, 90, 50, D, chunk_len=8, block_chunks=None,
+        rank_hint=8, test_u=su, test_i=si, test_r=sr, sgd_batch=100,
+        dtype=dt, host_user_layout=host, algo=algo))
+
+
+def _bpr_bits(m):
+    (tu, ti, tr), _ = _sharded_coo()
+    _, meta = m.sh.build_sharded_data(tu, ti, tr, 90, 50, 4, chunk_len=8,
+                                      sgd_batch=64, algo="bpr")
+    return _np_tree(m.sh.build_bpr_bits(tu, ti, meta, 64))
+
+
+def _sharded_stream(m, grad_mode):
+    (tu, ti, tr), _ = _sharded_coo()
+    _, meta = m.sh.build_sharded_data(tu, ti, tr, 90, 50, 3, chunk_len=8,
+                                      algo="stream-sgd")
+    return _np_tree(m.ss.build_sharded_stream_sgd(
+        tu, ti, tr, meta, 96, seed=3, grad_mode=grad_mode))
+
+
+def _dual(m, D):
+    (tu, ti, tr), (su, si, sr) = _sharded_coo()
+    data, meta = m.du.build_dual_sharded_data(
+        tu, ti, tr, 90, 50, D, chunk_len=8, rank_hint=8, test_u=su,
+        test_i=si, test_r=sr, host_user_layout=True)
+    return _np_tree((data, meta, m.du.dual_rated_bits(meta)))
+
+
+def _lpt(m):
+    rng = np.random.default_rng(5)
+    skewed = np.concatenate([rng.pareto(1.2, 300).astype(np.int64) * 7,
+                             np.zeros(40, np.int64), [5000, 4000, 1]])
+    out = []
+    for D in (1, 2, 3, 8):
+        members, shard_of = m.sh._lpt_partition(skewed, D)
+        out.append((tuple(np.asarray(x, np.int64) for x in members),
+                    shard_of))
+    # all zero degree: dealt evenly
+    out.append(m.sh._lpt_partition(np.zeros(10, np.int64), 4))
+    return _np_tree(out)
+
+
 _CASES = {
     "synthetic_ratings": (jsynthetic, tsynthetic, _synthetic),
     "synthetic_ratings_calibrated": (jsynthetic, tsynthetic, _calibrated),
@@ -364,6 +445,31 @@ _CASES = {
                               lambda m: _compact(m, "mean")),
     "compact_sgd_wire_sum_raw": (_packages("jax"), _packages("torch"),
                                  lambda m: _compact(m, "sum", raw=True)),
+    "build_sharded_data_all": (_parallel("jax"), _parallel("torch"),
+                               lambda m: _sharded_data(m, "all")),
+    "build_sharded_data_als_f64": (
+        _parallel("jax"), _parallel("torch"),
+        lambda m: _sharded_data(m, "als", D=2, host=False, f64=True)),
+    "build_sharded_data_bpr": (_parallel("jax"), _parallel("torch"),
+                               lambda m: _sharded_data(m, "bpr", D=4)),
+    "build_sharded_data_stream_sgd": (
+        _parallel("jax"), _parallel("torch"),
+        lambda m: _sharded_data(m, "stream-sgd", D=2, host=False)),
+    "build_sharded_data_one_shard": (_parallel("jax"), _parallel("torch"),
+                                     lambda m: _sharded_data(m, "all", D=1)),
+    "build_bpr_bits": (_parallel("jax"), _parallel("torch"), _bpr_bits),
+    "build_sharded_stream_sgd_mean": (
+        _parallel("jax"), _parallel("torch"),
+        lambda m: _sharded_stream(m, "mean")),
+    "build_sharded_stream_sgd_capped": (
+        _parallel("jax"), _parallel("torch"),
+        lambda m: _sharded_stream(m, "capped")),
+    "build_dual_sharded_data_2": (_parallel("jax"), _parallel("torch"),
+                                  lambda m: _dual(m, 2)),
+    "build_dual_sharded_data_4": (_parallel("jax"), _parallel("torch"),
+                                  lambda m: _dual(m, 4)),
+    "lpt_partition_skewed_and_cold": (_parallel("jax"), _parallel("torch"),
+                                      _lpt),
 }
 
 

@@ -76,6 +76,10 @@ _SLICE_MODULES = {
     "ycnr_tpu_torch.examples.bpr_ranking",
     "ycnr_tpu_torch.ops.packed", "ycnr_tpu_torch.ops.sgd_wire",
     "ycnr_tpu_torch.models.ooc",
+    "ycnr_tpu_torch.parallel", "ycnr_tpu_torch.parallel.mesh",
+    "ycnr_tpu_torch.parallel.shard", "ycnr_tpu_torch.parallel.sgd_stream",
+    "ycnr_tpu_torch.parallel.dual", "ycnr_tpu_torch.parallel.rank_main",
+    "ycnr_tpu_torch.train.sharded", "ycnr_tpu_torch.examples.sharded_train",
 }
 
 
@@ -88,7 +92,7 @@ def test_port_imports_without_jax_nvcc_or_triton():
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.splitlines()[:2]
-    assert int(count.split()[0]) >= 57  # every module of the port
+    assert int(count.split()[0]) >= 65  # every module of the port
     assert _SLICE_MODULES <= set(names.split())
 
 
@@ -126,7 +130,7 @@ def test_port_imports_nothing_of_the_jax_package():
         with open(f) as fh:
             if pat.search(fh.read()):
                 offenders.append(os.path.relpath(f, REPO))
-    assert len(files) >= 58 and offenders == []
+    assert len(files) >= 66 and offenders == []
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -57,10 +57,10 @@ def test_train_rmse_history_matches_jax(tmp_path, algo):
 
 
 def test_train_refuses_what_is_not_ported():
-    """Every algorithm trains now, out of core too; what is still missing
-    (a mesh, orbax checkpoints) raises, and out-of-core batched SGD and
-    BPR raise the reference's ValueError."""
-    for kw in (dict(mesh=MeshConfig(n_shards=2)),
+    """Every algorithm trains now, out of core and sharded too; what is
+    still missing (out of core on a mesh, orbax checkpoints) raises, and
+    out-of-core batched SGD and BPR raise the reference's ValueError."""
+    for kw in (dict(mesh=MeshConfig(n_shards=2), ooc=True),
                dict(checkpoint_backend="orbax")):
         for algo in ("als", "sgd", "bpr"):
             with pytest.raises(NotImplementedError):

@@ -191,16 +191,55 @@ def test_tune_rejects_bad_grids():
         tune(_cfg("als"), lams=[0.05], epochs=0, device="cpu")
 
 
-def test_tune_sharded_is_not_ported():
-    cfg = _cfg("als")
-    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh,
-                                                            n_shards=4))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tune(cfg, lams=[0.05], device="cpu")
-
-
 def test_tune_without_a_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None sweeps there")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tune(_cfg("als"), lams=[0.05])
+
+
+def _sharded(cfg, D):
+    return dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh,
+                                                             n_shards=D))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_tune_sharded_equals_single_process_and_jax(D):
+    """The sharded sweep on D gloo thread ranks (3 x 2 = 6 entries, padded
+    to a multiple of D and dealt in contiguous slices): every rank's
+    TuneResult equals the single-process sweep's, and its board the JAX
+    package's sharded sweep's on a D-device mesh."""
+    from ycnr_tpu_torch.parallel.mesh import run_ranks
+
+    cfg = _cfg("als")
+    ds = load_dataset(cfg.data, rank_hint=cfg.als.rank)
+    grid = dict(lams=[0.02, 0.05, 0.2], seeds=[0, 1], epochs=2, dataset=ds)
+    one = tune(cfg, device="cpu", **grid)
+    for res in run_ranks(lambda m: tune(_sharded(cfg, D), mesh=m, **grid),
+                         D):
+        assert res.leaderboard == one.leaderboard and res.best == one.best
+        for a, b in zip(res.best_state, one.best_state):
+            assert torch.equal(a, b)
+    ref = jtune(_sharded(cfg, D), **grid)
+    assert one.leaderboard == ref.leaderboard
+
+
+def test_tune_sharded_bpr_on_thread_ranks_equals_single_process():
+    from ycnr_tpu_torch.parallel.mesh import run_ranks
+
+    cfg = _bpr_cfg()
+    ds = load_dataset(cfg.data, rank_hint=6)
+    grid = dict(lams=[0.01, 0.05], lrs=[0.05], seeds=[0, 3], epochs=2,
+                dataset=ds)
+    one = tune(cfg, device="cpu", **grid)
+    got = run_ranks(lambda m: tune(_sharded(cfg, 2), mesh=m, **grid), 2)
+    assert all(r.leaderboard == one.leaderboard for r in got)
+    assert torch.equal(got[1].best_state.V, one.best_state.V)
+
+
+def test_tune_sharded_mesh_must_match_n_shards():
+    from ycnr_tpu_torch.parallel.mesh import run_ranks
+
+    cfg = _sharded(_cfg("als"), 4)
+    with pytest.raises(ValueError, match="n_shards = 4, the mesh has 2"):
+        run_ranks(lambda m: tune(cfg, lams=[0.05], mesh=m), 2)

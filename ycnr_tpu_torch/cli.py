@@ -14,9 +14,14 @@ The subcommands, flags, JSON lines and files are the JAX package's, with
 ``--device`` in place of ``--platform`` (``publish`` takes it too): by
 default the card (``cuda``), ``--device cpu`` for a CPU run; without a card
 the default stops with a message. ``train --ooc`` trains out of core
-(``--ooc-wire``, ``--ooc-residency``). What is not ported yet stops with
-one line naming the ROADMAP item it waits for: ``--shards > 1`` and
-``--distributed`` (the mesh, item 7).
+(``--ooc-wire``, ``--ooc-residency``). ``train --shards D`` trains over D
+ranks (``train/sharded.py``): D local processes, or with
+``--distributed`` (``--coordinator HOST:PORT --num-processes N
+--process-id R``, else torchrun's environment) this process's rank of a
+job started elsewhere. ``--dist-backend`` names the backend (default NCCL
+on the card, gloo with ``--device cpu``; NCCL needs a card a rank, gloo
+puts several ranks on one). ``train --ooc --shards D`` stops with one line
+naming the ROADMAP item it waits for.
 """
 
 from __future__ import annotations
@@ -28,10 +33,6 @@ import os
 import sys
 
 from ycnr_tpu_torch.config import get_preset, list_presets
-
-_MESH = ("sharded and multi-host training are not ported yet (ROADMAP "
-         "Queue 1, item 7)")
-
 
 def _device(args):
     """The device a command runs on: ``--device`` as given, else the card;
@@ -146,9 +147,10 @@ def _add_train_overrides(p):
     p.add_argument("--epochs", type=int)
     p.add_argument("--rank", type=int)
     p.add_argument("--algorithm", choices=["als", "sgd", "ials", "bpr"])
-    p.add_argument("--shards", type=int, help="not ported (item 7)")
+    p.add_argument("--shards", type=int,
+                   help="train over this many ranks (torch.distributed)")
     p.add_argument("--vstep-mode", choices=["gram_psum", "item_sharded"],
-                   help="sharded V-step collective strategy (not ported)")
+                   help="sharded V-step collective strategy")
     p.add_argument("--sgd-method", choices=["batched", "stream"],
                    help="SGD epoch structure: 'batched' = uniformly "
                         "shuffled (oracle semantics), 'stream' = "
@@ -218,17 +220,25 @@ def _add_train_overrides(p):
                    help="minimum RMSE improvement that counts (with "
                         "--early-stop)")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported (item 7)")
+                   help="join a multi-process job through torch.distributed "
+                        "(torchrun's environment, or the flags below); run "
+                        "one `train --distributed` per rank")
     p.add_argument("--coordinator", metavar="HOST:PORT",
-                   help="not ported (item 7)")
+                   help="explicit rendezvous address (implies "
+                        "--distributed)")
     p.add_argument("--num-processes", type=int)
     p.add_argument("--process-id", type=int)
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                   help="collective backend (default: nccl on the card, "
+                        "gloo with --device cpu); nccl needs a card a rank")
 
 
 def _refuse_unported(args):
     """One line, naming the ROADMAP item, for what the port lacks."""
-    if args.distributed or args.coordinator or (args.shards or 1) > 1:
-        raise SystemExit(f"{args.cmd}: {_MESH}")
+    if getattr(args, "ooc", False) and (args.shards or 1) > 1:
+        from ycnr_tpu_torch.train.loop import OOC_MESH
+
+        raise SystemExit(f"{args.cmd}: {OOC_MESH}")
     if args.ckpt_backend == "orbax":
         raise SystemExit(f"{args.cmd} --ckpt-backend orbax: orbax is a JAX "
                          f"package; the port writes npz checkpoints")
@@ -321,8 +331,10 @@ def _build_cfg(args):
         # nobody chose an out_dir -> ./runs; an explicit "" in the config
         # file means "no artifacts" and is honored
         cfg = cfg.replace(out_dir="runs")
-    if cfg.mesh.n_shards > 1:  # a config file may ask for a mesh too
-        raise SystemExit(f"{args.cmd}: {_MESH}")
+    if cfg.ooc and cfg.mesh.n_shards > 1:  # a config file may ask too
+        from ycnr_tpu_torch.train.loop import OOC_MESH
+
+        raise SystemExit(f"{args.cmd}: {OOC_MESH}")
     return cfg
 
 
@@ -352,6 +364,13 @@ def _store_dataset(args, cfg):
 
 def cmd_train(args):
     _refuse_unported(args)
+    if args.distributed or args.coordinator:
+        from ycnr_tpu_torch.parallel.mesh import init_distributed
+
+        pid = init_distributed(args.coordinator, args.num_processes,
+                               args.process_id, backend=args.dist_backend,
+                               device=args.device)
+        print(json.dumps({"event": "distributed", "process_id": pid}))
     device = _device(args)
     cfg = _build_cfg(args)
     from ycnr_tpu_torch.train.loop import train
@@ -360,7 +379,8 @@ def cmd_train(args):
 
     def run():
         return train(cfg, dataset=ds, resume=args.resume,
-                     warm_start=args.warm_start, device=device)
+                     warm_start=args.warm_start, device=device,
+                     backend=args.dist_backend)
 
     if args.profile:
         from ycnr_tpu_torch.utils.profiling import trace
@@ -426,7 +446,8 @@ def cmd_tune(args):
             cfg_r = cfg if rk is None else cfg.replace(**{field: dc.replace(
                 getattr(cfg, field), rank=rk)})
             res = tune(cfg_r, lams, alphas=alphas, lrs=lrs, seeds=seeds,
-                       epochs=args.epochs, dataset=ds, device=device)
+                       epochs=args.epochs, dataset=ds, device=device,
+                       backend=args.dist_backend)
             results.append((rk, res))
             board.extend([{"rank": rk, **e} for e in res.leaderboard]
                          if rk is not None else res.leaderboard)

@@ -36,6 +36,9 @@ from ycnr_tpu_torch.ops import _build
 MAX_N = 256
 
 launches = 0  # K1 launches since the last reset (chip_smoke reads it)
+# the same launches by the body that ran them ("warp" n <= 64, "block"
+# n <= 128, "packed" above; ``body``), reset with ``launches``
+body_launches = {"warp": 0, "block": 0, "packed": 0}
 
 
 def spd_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -50,6 +53,11 @@ def packed_index(r, c, n: int):
     (``csrc/spd_solve.cu:packed_index``): column c holds rows c .. n - 1
     and starts at c (2n - c + 1) / 2."""
     return c * (2 * n - c + 1) // 2 + (r - c)
+
+
+def body(n: int) -> str:
+    """Which body of K1 solves systems of size n (``csrc/spd_solve.cu``)."""
+    return "warp" if n <= 64 else "block" if n <= 128 else "packed"
 
 
 def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -75,6 +83,7 @@ def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                             _build.stream(A.device))
     _build.check(rc, "ycnr_spd_solve")
     launches += 1
+    body_launches[body(n)] += 1
     return x
 
 

@@ -9,8 +9,9 @@ into shared memory after every epoch (``cfg.publish_shm``). With
 ``cfg.ooc`` ALS/iALS train from the packed or RECT rating wire
 (``models/ooc.py``) and stream SGD from the host stream or its compact
 wire (``ops/sgd_wire.py``), pinned on the device or streamed from host
-memory as ``cfg.ooc_residency`` says. Sharded training and orbax
-checkpoints are not ported yet and are refused.
+memory as ``cfg.ooc_residency`` says. With ``cfg.mesh.n_shards > 1`` it
+trains sharded over ``torch.distributed`` (``train/sharded.py``). Out of
+core on a mesh and orbax checkpoints are not ported and are refused.
 """
 
 from __future__ import annotations
@@ -70,6 +71,10 @@ from ycnr_tpu_torch.train.checkpoint import (
 from ycnr_tpu_torch.train.metrics import MetricsLogger
 
 
+OOC_MESH = ("out of core on a mesh (ycnr_tpu/parallel/ooc_mesh.py) is not "
+            "ported yet (ROADMAP Queue 1, item 9)")
+
+
 @dataclass
 class TrainResult:
     state: MFState
@@ -85,9 +90,8 @@ def _check_supported(cfg: RunConfig):
     if cfg.ooc and cfg.ooc_residency not in ("auto", "device", "host"):
         raise ValueError(f"ooc_residency must be 'auto', 'device' or "
                          f"'host', got {cfg.ooc_residency!r}")
-    if cfg.mesh.n_shards > 1:
-        raise NotImplementedError("the port trains on one GPU (sharding "
-                                  "is ROADMAP Queue 1, item 7)")
+    if cfg.mesh.n_shards > 1 and cfg.ooc:
+        raise NotImplementedError(OOC_MESH)
     if cfg.ooc and not (cfg.algorithm in ("als", "ials")
                         or (cfg.algorithm == "sgd"
                             and cfg.sgd.method == "stream")):
@@ -291,11 +295,23 @@ def _epoch_fn(cfg: RunConfig, ds: Dataset, params, dtype, device, metrics):
 
 def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
           resume: Optional[str] = None, warm_start: Optional[str] = None,
-          out_dir: Optional[str] = None, device=None) -> TrainResult:
+          out_dir: Optional[str] = None, device=None, mesh=None,
+          backend: Optional[str] = None) -> TrainResult:
     """Train per config on ``device`` (default ``"cuda"``). Without a CUDA
-    device the default raises; a CPU run passes ``device="cpu"``."""
+    device the default raises; a CPU run passes ``device="cpu"``.
+
+    ``cfg.mesh.n_shards > 1`` trains sharded (``train/sharded.py``): as
+    the rank of ``mesh`` when given, as this process's rank inside a
+    process group, else over ``n_shards`` rank processes started here.
+    ``backend`` (for that launch) None means NCCL on the card and gloo
+    with ``device="cpu"``; NCCL needs a card a rank."""
     _check_supported(cfg)
     full_precision_matmul()
+    if cfg.mesh.n_shards > 1:
+        from ycnr_tpu_torch.train.sharded import train_sharded
+
+        return train_sharded(cfg, dataset, resume, warm_start, out_dir,
+                             device, mesh, backend)
     device = resolve_device(device, "train()")
     params = _algo_params(cfg)
     ds = dataset or load_dataset(cfg.data, rank_hint=params.rank)

@@ -15,8 +15,16 @@ SGD sweeps run the stream trainer, as the reference's do (its epoch core
 takes lam and lr as plain inputs; the batched trainer is not swept), with
 the stream order pinned to ``cfg.seed``. BPR sweeps score each epoch by the
 held-out pairwise AUC over fixed triples and rank by the final hit rate.
-The leaderboard's keys, order and best pick are the reference's. The
-sharded sweep (``cfg.mesh.n_shards > 1``) is not ported and raises.
+The leaderboard's keys, order and best pick are the reference's.
+
+The sharded sweep (``cfg.mesh.n_shards = D > 1``, the reference's
+``_sweep_sharded``) deals the grid entries to the ranks: the grid is padded
+to a multiple of D with copies of its last entry, rank r trains the r-th
+contiguous slice with the same single-GPU code, and the final states and
+trajectories are all-gathered (no other collective), so every rank ends
+with the single-process sweep's ``TuneResult``. It runs as the rank of
+``mesh`` when given, as this process's rank inside a process group, else
+over D rank processes started here (``parallel.mesh.spawn_ranks``).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from ycnr_tpu_torch.models.base import (
     MFState,
     init_state,
     rmse_padded,
+    to_numpy,
     zero_cold_entities,
 )
 from ycnr_tpu_torch.models.bucketed_phase import (
@@ -102,6 +111,50 @@ def _auc(state: MFState, eu, ei, ej) -> float:
     return float((xi > xj).to(state.U.dtype).mean())
 
 
+def _gather_entries(mesh, finals, trajs, n_grid: int):
+    """Every rank's final states and trajectories, in grid order, on
+    every rank (all-gathers of equal shapes), pad entries dropped."""
+    traj = torch.as_tensor(np.stack(trajs), device=mesh.device)
+    trajs = torch.cat(mesh.all_gather(traj)).cpu().numpy()[:n_grid]
+    fields = [torch.cat(mesh.all_gather(torch.stack(list(xs))))
+              for xs in zip(*finals)]
+    states = [MFState(*(f[s] for f in fields)) for s in range(n_grid)]
+    return states, list(trajs)
+
+
+def _spawn_tune(cfg, lams, alphas, lrs, seeds, n_epochs, dataset, device,
+                backend, params):
+    """The sharded sweep over ``cfg.mesh.n_shards`` rank processes;
+    rank 0's result, its best state on ``device``."""
+    from ycnr_tpu_torch.models.base import state_from_numpy
+    from ycnr_tpu_torch.parallel.mesh import spawn_ranks
+    from ycnr_tpu_torch.train.sharded import _DS_ARRAYS, _ds_meta
+
+    dev = resolve_device(device, "tune()")  # no card: say so first
+    ds = dataset or load_dataset(cfg.data, rank_hint=params.rank)
+    res = spawn_ranks(
+        "ycnr_tpu_torch.train.tune:rank_tune", cfg.mesh.n_shards,
+        backend=backend, device=device,
+        arrays={k: getattr(ds, k) for k in _DS_ARRAYS},
+        kwargs=dict(cfg=cfg, lams=list(lams), alphas=alphas, lrs=lrs,
+                    seeds=list(seeds), epochs=n_epochs,
+                    ds_meta=_ds_meta(ds)))
+    state = state_from_numpy(*res["best_state"], device=dev,
+                             dtype=getattr(torch, params.dtype))
+    return TuneResult(leaderboard=res["leaderboard"], best=res["best"],
+                      best_state=state, dataset=ds)
+
+
+def rank_tune(mesh, cfg, lams, alphas, lrs, seeds, epochs, ds_meta,
+              **arrays):
+    """One rank process of the sharded sweep; rank 0 returns the board,
+    the best entry and its state as NumPy."""
+    res = tune(cfg, lams, alphas=alphas, lrs=lrs, seeds=seeds, epochs=epochs,
+               dataset=Dataset(**ds_meta, **arrays), mesh=mesh)
+    return {"leaderboard": res.leaderboard, "best": res.best,
+            "best_state": to_numpy(res.best_state)}
+
+
 def _check_grid(cfg: RunConfig, params, lams, alphas, lrs, seeds, epochs):
     """The reference's grid checks, in its order; returns (alphas, lrs,
     n_epochs) with the defaults filled in."""
@@ -134,7 +187,8 @@ def tune(cfg: RunConfig, lams: Sequence[float],
          alphas: Optional[Sequence[float]] = None,
          lrs: Optional[Sequence[float]] = None,
          seeds: Sequence[int] = (0,), epochs: Optional[int] = None,
-         dataset: Optional[Dataset] = None, device=None) -> TuneResult:
+         dataset: Optional[Dataset] = None, device=None, mesh=None,
+         backend: Optional[str] = None) -> TuneResult:
     """Grid sweep on ``device`` (None: the card). Axes: lambda, x alpha
     (iALS), x lr (SGD, BPR), x init seed. Leaderboard sorted by the
     selection metric:
@@ -154,11 +208,21 @@ def tune(cfg: RunConfig, lams: Sequence[float],
     params = _algo_params(cfg)
     alphas, lrs, n_epochs = _check_grid(cfg, params, lams, alphas, lrs,
                                         seeds, epochs)
-    if cfg.mesh.n_shards > 1:
-        raise NotImplementedError(
-            "the sharded sweep (mesh.n_shards > 1) waits for the port of "
-            "ycnr_tpu/parallel (ROADMAP Queue 1, item 7)")
-    device = resolve_device(device, "tune()")
+    D = cfg.mesh.n_shards
+    if D > 1 and mesh is None:
+        import torch.distributed as dist
+
+        from ycnr_tpu_torch.parallel.mesh import make_mesh
+
+        if not dist.is_initialized():
+            return _spawn_tune(cfg, lams, alphas, lrs, seeds, n_epochs,
+                               dataset, device, backend, params)
+        mesh = make_mesh(D, device=device)
+    if mesh is not None and mesh.world != D:
+        raise ValueError(f"cfg.mesh.n_shards = {D}, the mesh has "
+                         f"{mesh.world} ranks")
+    device = mesh.device if mesh is not None else resolve_device(device,
+                                                                 "tune()")
     full_precision_matmul()
     ds = dataset or load_dataset(cfg.data, rank_hint=params.rank)
     dtype = getattr(torch, params.dtype)
@@ -196,8 +260,14 @@ def tune(cfg: RunConfig, lams: Sequence[float],
         dul, dil = _bucketed_layouts(cfg, ds, params, dtype, device)
         bf16 = params.gather_dtype == "bfloat16"
 
+    # the sharded sweep: pad the grid to a multiple of D (pad entries
+    # recompute the last one and are dropped) and take this rank's slice
+    grid_run = grid + [grid[-1]] * ((-len(grid)) % D)
+    per = len(grid_run) // D
+    mine = (grid_run[mesh.rank * per:(mesh.rank + 1) * per]
+            if mesh is not None else grid)
     finals, trajs = [], []
-    for lam, aux_val, seed in grid:
+    for lam, aux_val, seed in mine:
         state = zero_cold_entities(
             init_state(ds.n_users, ds.n_items, params.rank, seed=seed,
                        mu=mu, dtype=dtype, device=device),
@@ -225,6 +295,8 @@ def tune(cfg: RunConfig, lams: Sequence[float],
             traj = rt.tolist()
         finals.append(state)
         trajs.append(np.asarray(traj, np.float64))
+    if mesh is not None:
+        finals, trajs = _gather_entries(mesh, finals, trajs, len(grid))
 
     board = []
     for s, (lam, aux_val, seed) in enumerate(grid):
