@@ -114,6 +114,19 @@ Run from the repository root:  python3 chip_smoke.py
     K2 on every rank (4,096 lists held to ``recommend_users`` on the
     gathered state) and one item_sharded epoch; NCCL asked for two ranks
     on one card raises the port's error; and ``train --shards 2
+    --dist-backend gloo --epochs 2`` from item 17's store;
+21. out of core on the mesh (``parallel/ooc_mesh.py``) on the same .npy
+    set, at D = 1 over NCCL and D = 2 over gloo on cuda:0: ``train(ooc=
+    True)`` as each rank (ALS-WR rank 64, lam 0.05, bf16 gathers, 4
+    epochs: RMSE held to the reference trajectory, the resident blocked
+    run and the resident main path, the gathered U and V to the blocked
+    run's, trash and cold rows 0, K1 and ``fused_gram`` launched on every
+    rank, peak memory a rank); on a wire the launcher builds once, 4
+    pinned epochs through ``make_sharded_ooc_epoch`` (s/epoch, 445,036,800
+    bytes all-reduced a rank an epoch, epoch 3 by kernel and the idle
+    share) and a streamed pair bit-equal to them (bytes staged); at D = 2
+    one iALS epoch (K1 and ``row_gather`` on every rank) against a
+    resident blocked iALS epoch; and ``train --ooc --shards 2
     --dist-backend gloo --epochs 2`` from item 17's store.
 
 Every path runs with the kernels' launch counts set to 0 just before it,
@@ -3035,38 +3048,348 @@ def phase_mesh(dev, tu, ti, tr, su, si, sr, lays, main_rmse, tmp: str,
             launches["spd_solve block"] += int(k1_block)
             launches["row_gather"] += int(rg)
             launches["fused_scores"] += int(k2)
-    return {"launches": launches, "runs": runs}
+    return {"launches": launches, "runs": runs, "paths": paths, "ref": ref}
 
 
-def phase_mesh_cli(cli: dict, main_rmse, tmp: str, smi: str):
+def phase_mesh_cli(cli: dict, main_rmse, tmp: str, smi: str,
+                   ooc_pinned=None):
     """python -m ycnr_tpu_torch train --preset ml20m-als --shards 2
     --dist-backend gloo --epochs 2, in process, on the CLI phase's store
     and split: two rank processes on cuda:0, metrics with shards=2, the
-    trajectory of the resident main path."""
+    trajectory of the resident main path. With ``ooc_pinned`` (rank 0's
+    pinned wire bytes in the ooc mesh phase) also --ooc: ooc=true on every
+    line and one ``ooc_residency`` event with those bytes."""
     import io
 
     from ycnr_tpu_torch.cli import main as cli_main
 
-    out = os.path.join(tmp, "mesh_runs")
+    ooc = ooc_pinned is not None
+    flag = ["--ooc"] if ooc else []
+    what = "train " + " ".join(flag + ["--shards", "2"])
+    out = os.path.join(tmp, "ooc_mesh_runs" if ooc else "mesh_runs")
     buf = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         cli_main(["train", "--preset", "ml20m-als", "--config",
                   cli["cfg_file"], "--store", cli["store"], "--epochs", "2",
-                  "--shards", "2", "--dist-backend", "gloo", "--out", out])
+                  *flag, "--shards", "2", "--dist-backend", "gloo", "--out",
+                  out])
     wall = time.time() - t0
     last = json.loads(buf.getvalue().strip().splitlines()[-1])
-    ev = [e for e in read_events(os.path.join(out, "ml20m-als"))
-          if "rmse_test" in e]
-    check(last["epochs"] == 2 and [e["shards"] for e in ev] == [2, 2],
-          "cli train --shards 2: two epochs, shards=2 on every line")
+    events = read_events(os.path.join(out, "ml20m-als"))
+    ev = [e for e in events if "rmse_test" in e]
+    check(last["epochs"] == 2 and [e["shards"] for e in ev] == [2, 2]
+          and all(e.get("ooc", False) == ooc for e in ev),
+          f"cli {what}: two epochs, shards=2 (ooc={ooc}) on every line")
+    if ooc:
+        rev = [e for e in events if e.get("event") == "ooc_residency"]
+        check([(e["mesh_shards"], e["hbm_pinned_bytes"], e["streamed_bytes"])
+               for e in rev] == [(2, int(ooc_pinned), 0)],
+              f"cli {what}: one ooc_residency event with rank 0's pinned "
+              f"wire bytes")
     for e, m in zip(ev, main_rmse):
         check(abs(e["rmse_test"] - m) <= MESH_RMSE_TOL,
-              f"cli train --shards 2 epoch {e['epoch']}: rmse within "
+              f"cli {what} epoch {e['epoch']}: rmse within "
               f"{MESH_RMSE_TOL} of the resident run")
-    log(f"cli train --shards 2 --dist-backend gloo: {wall:.1f} s wall; "
+    log(f"cli {what} --dist-backend gloo: {wall:.1f} s wall; "
         f"rmse {[e['rmse_test'] for e in ev]}, s/epoch "
         f"{[e['epoch_s'] for e in ev]}; on {smi}")
+    return wall
+
+
+# ---- out of core on the mesh (parallel/ooc_mesh.py) ------------------------
+# ALS-WR's item phase all-reduces A [26,745, 64, 64] and b [26,745, 64] in
+# f32 a rank an epoch at the ML-20M shape and rank 64 (iALS adds U^T U)
+OOC_MESH_BYTES = (26_745 * 64 * 64 + 26_745 * 64) * 4
+
+
+def ooc_mesh_rank(mesh, wire, epochs: int, ials: bool = False,
+                  **arrays) -> dict:
+    """One rank process of the "ooc mesh" phase (``spawn_ranks`` runs it)
+    on the ML-20M arrays (memory-mapped .npy) and the launcher's wire
+    (``wire``: ``split_wire``'s skeleton and the meta; its arrays arrive
+    with the dataset's), through ``parallel/ooc_mesh.py`` as
+    ``train(ooc=True)`` runs a rank:
+
+    1. the rank's slice pinned on the card, ALS-WR rank 64, lam 0.05, bf16
+       gathers, ``epochs`` epochs from the main path's start: per epoch the
+       seconds (device synchronized), the held-out RMSE, bytes and host ms
+       of the collectives (``Mesh.timed``); epoch 3 profiled by kernel on
+       rank 0; launches and peak device memory over the run; the gathered
+       factors against the resident blocked run's, trash and cold rows;
+    2. two streamed epochs (``feed_sharded_wire``) from the same start,
+       bit-equal to the pinned run after epoch 2, and the host bytes they
+       staged;
+    3. with ``ials``: one iALS epoch (lam 0.1, alpha 40) pinned, its
+       launches, against the resident blocked iALS epoch's factors.
+
+    Every rank's figures are all-gathered; rank 0 returns the lot."""
+    import ycnr_tpu_torch
+    from ycnr_tpu_torch.models import ooc
+    from ycnr_tpu_torch.models.base import init_state, zero_cold_entities
+    from ycnr_tpu_torch.parallel import ooc_mesh as om
+    from ycnr_tpu_torch.parallel import shard as sh
+
+    ycnr_tpu_torch.full_precision_matmul()
+    dev = mesh.device
+    tu, ti = arrays["tu"], arrays["ti"]
+    n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
+                                                     "rank", "lam"))
+    out = {"world": mesh.world, "backend": mesh.backend}
+    cold_u = torch.as_tensor(np.nonzero(np.bincount(
+        tu, minlength=n_users) == 0)[0], device=dev)
+    cold_i = torch.as_tensor(np.nonzero(np.bincount(
+        ti, minlength=n_items) == 0)[0], device=dev)
+
+    def zero_rows(g) -> bool:
+        return (bool((g.U[-1] == 0).all()) and bool((g.V[-1] == 0).all())
+                and bool((g.U[cold_u] == 0).all())
+                and bool((g.V[cold_i] == 0).all()))
+
+    def diffs(g, ref_u, ref_v):
+        return {name: factor_diff(F[:-1], torch.as_tensor(
+            np.array(arrays[ref]), device=dev))
+            for name, F, ref in (("U", g.U, ref_u), ("V", g.V, ref_v))}
+
+    sw, meta = om.join_wire(wire[0], arrays), wire[1]
+    data = om.put_test_rows(meta, arrays["su"], arrays["si"], arrays["sr"],
+                            mesh, torch.float32)
+
+    def start():
+        return sh.scatter_state(zero_cold_entities(init_state(
+            n_users, n_items, rank, seed=0, device=dev), tu, ti), meta, mesh)
+
+    # 1. pinned
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    pinned = om.put_sharded_wire(sw, mesh)
+    pinned_bytes = ooc.wire_nbytes(pinned.ugroups, pinned.igroups)
+    ep = om.make_sharded_ooc_epoch(mesh, pinned, lam, gather_bf16=True)
+    st = start()
+    mesh.timed = True
+    reset_launches()
+    out.update(rmse=[], s=[], bytes=[], coll_s=[])
+    for e in range(epochs):
+        b0, c0 = mesh.bytes_moved, mesh.collective_s
+        sync()
+        t0 = time.time()
+        if e == 2 and mesh.rank == 0:  # epoch 3, rank 0: device time
+            st, out["dev_ms_epoch3"] = profile_breakdown(
+                lambda: ep(st), f"ooc mesh epoch 3, rank 0 of {mesh.world}")
+        else:
+            st = ep(st)
+        sync()
+        out["s"].append(time.time() - t0)
+        out["bytes"].append(mesh.bytes_moved - b0)
+        out["coll_s"].append(mesh.collective_s - c0)
+        out["rmse"].append(sh.sharded_rmse(mesh, st, data, meta.test_n))
+        if e == 1:
+            U2, V2 = st.U.clone(), st.V.clone()
+    ln = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    g = sh.gather_state(st, meta, mesh)
+    zero = zero_rows(g) and bool((st.U[-1] == 0).all())
+    if mesh.rank == 0:
+        out["factor_diff"] = diffs(g, "ref_U", "ref_V")
+    del st, g
+
+    # 2. streamed, from the same start
+    sep = om.make_sharded_ooc_epoch(mesh, None, lam, gather_bf16=True,
+                                    wire_as_args=True)
+    st = start()
+    staged0 = ooc.staged_bytes
+    out["streamed_s"] = []
+    for _ in range(2):
+        sync()
+        t0 = time.time()
+        st = sep(st, om.feed_sharded_wire(sw, mesh))
+        sync()
+        out["streamed_s"].append(time.time() - t0)
+    staged = ooc.staged_bytes - staged0
+    same = torch.equal(st.U, U2) and torch.equal(st.V, V2)
+    del st, U2, V2
+
+    # 3. one iALS epoch, pinned
+    iln = dict.fromkeys(("spd_solve", "row_gather"), 0)
+    if ials:
+        iep = om.make_sharded_ooc_epoch(mesh, pinned, IALS["lam"],
+                                        alpha=IALS["alpha"], gather_bf16=True)
+        st = start()
+        b0 = mesh.bytes_moved
+        reset_launches()
+        sync()
+        t0 = time.time()
+        st = iep(st)
+        sync()
+        iln = read_launches()
+        out["ials"] = {"s": time.time() - t0, "bytes": mesh.bytes_moved - b0}
+        g = sh.gather_state(st, meta, mesh)
+        out["ials"]["zero"] = zero_rows(g) and bool((st.U[-1] == 0).all())
+        if mesh.rank == 0:
+            out["ials"]["factor_diff"] = diffs(g, "ref_iU", "ref_iV")
+    per = torch.tensor(
+        [ln["spd_solve"], ln["fused_gram"], ln["row_gather"],
+         ln["spd_solve block"], peak, float(zero), float(same), pinned_bytes,
+         staged, min(out["bytes"]), max(out["bytes"]), iln["spd_solve"],
+         iln["row_gather"]], dtype=torch.float64, device=dev)
+    out["per_rank"] = [x.tolist() for x in mesh.all_gather(per)]
+    return out
+
+
+def ials_reference(dev, tu, ti, lays, tmp: str) -> dict:
+    """One resident iALS epoch (lam 0.1, alpha 40, bf16 gathers) over the
+    host blocked layouts ``lays``, ``solve_block`` a block as
+    ``models/ials.py`` walks it, from the main path's start: the paths of
+    its U and V (real rows) as .npy for the rank processes."""
+    from ycnr_tpu_torch.models.base import (device_layout, init_state,
+                                            zero_cold_entities)
+    from ycnr_tpu_torch.ops.gram import BlockData, solve_block
+
+    n_users, n_items, rank = (MAIN[k] for k in ("n_users", "n_items",
+                                                "rank"))
+    lam, alpha = IALS["lam"], IALS["alpha"]
+    lu, li = (device_layout(x, torch.float32, dev) for x in lays)
+    st = zero_cold_entities(init_state(n_users, n_items, rank, seed=0,
+                                       device=dev), tu, ti)
+    for E, F, lay in ((st.U, st.V, lu), (st.V, st.U, li)):
+        G = F.T @ F
+        for blk in zip(*lay):
+            eid, rows = solve_block(F, BlockData(*blk), lam,
+                                    gram_weight_alpha=alpha, base_gram=G,
+                                    base_reg=lam, gather_bf16=True)
+            E[eid] = rows
+    paths = {}
+    for name, F in (("ref_iU", st.U), ("ref_iV", st.V)):
+        paths[name] = os.path.join(tmp, f"mesh_{name}.npy")
+        np.save(paths[name], F[:-1].cpu().numpy())
+    return paths
+
+
+def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
+                   tmp: str, smi: str) -> dict:
+    """Out of core on the mesh (``parallel/ooc_mesh.py``) on the main
+    path's arrays, in real rank processes of the port's launcher (the mesh
+    phase's .npy set; the launcher builds each wire once and adds its
+    arrays to the set): D = 1 over NCCL and D = 2 over gloo on cuda:0
+    (``ooc_mesh_rank``; the iALS epoch at D = 2), then ``train --ooc
+    --shards 2 --dist-backend gloo --epochs 2`` from the CLI phase's
+    store."""
+    from ycnr_tpu_torch.parallel.mesh import spawn_ranks
+    from ycnr_tpu_torch.parallel.ooc_mesh import (build_sharded_wire,
+                                                  split_wire)
+
+    n_users, n_items, rank = (MAIN[k] for k in ("n_users", "n_items",
+                                                "rank"))
+    t0 = time.time()
+    paths = dict(mesh["paths"], **ials_reference(dev, tu, ti, lays, tmp))
+    log(f"ooc mesh: resident blocked iALS epoch for the reference in "
+        f"{time.time() - t0:.1f} s")
+    ref_rmse = mesh["ref"]["rmse"]
+    runs = {}
+    for name, world, backend, kw in (("D=1 nccl", 1, "nccl", {}),
+                                     ("D=2 gloo", 2, "gloo",
+                                      {"ials": True})):
+        t0 = time.time()
+        # the main path's groups, as the CLI phase's config file gives
+        # train()
+        sw, meta = build_sharded_wire(tu, ti, tr, n_users, n_items, world,
+                                      rank_hint=rank,
+                                      max_groups=MAIN["groups"])
+        skel, leaves = split_wire(sw)
+        build_s = time.time() - t0
+        t0 = time.time()
+        res = spawn_ranks(
+            "chip_smoke:ooc_mesh_rank", world, backend=backend,
+            device="cuda", arrays=dict(paths, **leaves),
+            kwargs=dict(wire=(skel, meta), epochs=MESH_EPOCHS, **kw))
+        res["wall_s"] = time.time() - t0
+        del sw, leaves
+        runs[name] = res
+        what = f"ooc mesh {name}"
+        log(f"{what}: wire built once in the launcher in {build_s:.1f} s; "
+            f"{world} rank process(es), {res['wall_s']:.1f} s wall; "
+            f"collectives over {res['backend']}")
+        s = res["s"]
+        for ep, (r, want, m, b) in enumerate(zip(
+                res["rmse"], ANCHOR_RMSE, main_rmse, ref_rmse)):
+            log(f"{what} epoch {ep + 1}: {s[ep]:.4f} s, held-out rmse "
+                f"{r:.6f} (resident blocked {b:.6f}, |diff| {abs(r - b):.2e};"
+                f" resident main path {m:.6f}, |diff| {abs(r - m):.2e}); "
+                f"{res['bytes'][ep]:,} bytes through collectives, "
+                f"{1e3 * res['coll_s'][ep]:.1f} ms in them (host clock, "
+                f"device synchronized around each)")
+            check(abs(r - want) <= RMSE_TOL,
+                  f"{what} epoch {ep + 1}: rmse within {RMSE_TOL} of {want}")
+            check(abs(r - b) <= MESH_RMSE_TOL,
+                  f"{what} epoch {ep + 1}: rmse within {MESH_RMSE_TOL} of "
+                  f"the resident blocked run")
+            check(abs(r - m) <= MESH_RMSE_TOL,
+                  f"{what} epoch {ep + 1}: rmse within {MESH_RMSE_TOL} of "
+                  f"the resident main path")
+        for side, fd in res["factor_diff"].items():
+            log(f"{what}: gathered {side} after {MESH_EPOCHS} epochs against "
+                f"the resident blocked run's: largest |diff| "
+                f"{fd['scale']:.3e} of the largest |entry|; largest row "
+                f"|diff| / |row| {fd['row']:.3e}")
+            check(fd["scale"] <= MESH_FACTOR_TOL and fd["row"]
+                  <= MESH_FACTOR_TOL, f"{what}: {side} and its every row "
+                  f"within {MESH_FACTOR_TOL} of the resident blocked run's")
+        wall = (s[1] + s[3]) / 2
+        dev_ms = res["dev_ms_epoch3"]
+        log(f"{what}: s/epoch, epochs 2 and 4: {s[1]:.4f} {s[3]:.4f} "
+            f"(epoch 3 profiled); rank 0's device time in epoch 3 "
+            f"{dev_ms:.2f} ms = {dev_ms / 1e3 / wall:.3f} of that wall "
+            f"(idle {1 - dev_ms / 1e3 / wall:.3f}); streamed s/epoch "
+            f"{[round(x, 4) for x in res['streamed_s']]}; on {smi}")
+        for r, row in enumerate(res["per_rank"]):
+            (k1, fg, rg, k1b, peak, zero, same, pinned, staged, bmin,
+             bmax, ik1, irg) = row
+            log(f"{what} rank {r}: K1 {int(k1)}, fused_gram {int(fg)}, "
+                f"row_gather {int(rg)} launches (K1 block body "
+                f"{int(k1b)}); peak device memory {int(peak):,} bytes above "
+                f"the rank's start; pinned wire {int(pinned):,} bytes; the "
+                f"streamed pair staged {int(staged):,} bytes; trash and "
+                f"cold rows 0: {bool(zero)}; streamed = pinned: "
+                f"{bool(same)}" + (f"; iALS epoch K1 {int(ik1)}, row_gather "
+                                   f"{int(irg)}" if kw else ""))
+            check(k1 > 0 and fg > 0, f"{what} rank {r}: K1 and fused_gram "
+                  f"launched")
+            check(bool(zero), f"{what} rank {r}: trash and cold rows 0")
+            check(bool(same), f"{what} rank {r}: streamed epochs bit-equal "
+                  f"to the pinned ones")
+            check(bmin == bmax == OOC_MESH_BYTES, f"{what} rank {r}: "
+                  f"{OOC_MESH_BYTES:,} bytes all-reduced every epoch")
+            check(staged > 0, f"{what} rank {r}: the streamed pair staged "
+                  f"its wire")
+            if kw:
+                check(ik1 > 0 and irg > 0, f"{what} rank {r}: K1 and "
+                      f"row_gather launched by the iALS epoch")
+    ia = runs["D=2 gloo"]["ials"]
+    log(f"ooc mesh iALS (D=2) epoch 1: {ia['s']:.4f} s, {ia['bytes']:,} "
+        f"bytes through collectives; against the resident blocked iALS "
+        f"epoch: " + "; ".join(
+            f"{k} {fd['scale']:.3e} of the largest |entry|, rows "
+            f"{fd['row']:.3e}" for k, fd in ia["factor_diff"].items()))
+    check(ia["bytes"] == OOC_MESH_BYTES + 64 * 64 * 4,
+          "ooc mesh iALS: A, b and U^T U all-reduced")
+    check(ia["zero"], "ooc mesh iALS: trash and cold rows 0")
+    for side, fd in ia["factor_diff"].items():
+        check(fd["scale"] <= MESH_FACTOR_TOL and fd["row"] <= MESH_FACTOR_TOL,
+              f"ooc mesh iALS: {side} and its every row within "
+              f"{MESH_FACTOR_TOL} of the resident blocked iALS epoch's")
+    cli_s = phase_mesh_cli(cli, main_rmse, tmp, smi,
+                           ooc_pinned=runs["D=2 gloo"]["per_rank"][0][7])
+    launches = {"spd_solve": 0, "spd_solve block": 0, "row_gather": 0,
+                "fused_gram": 0}
+    for res in runs.values():
+        for k1, fg, rg, k1b, *_, ik1, irg in res["per_rank"]:
+            launches["spd_solve"] += int(k1 + ik1)
+            launches["spd_solve block"] += int(k1b)
+            launches["fused_gram"] += int(fg)
+            launches["row_gather"] += int(rg + irg)
+    log(f"ooc mesh: kernel launches over the 4-epoch runs and the iALS "
+        f"epoch, every rank: {launches}; cli {cli_s:.1f} s")
+    return {"launches": launches, "runs": runs}
 
 
 
@@ -3319,8 +3642,11 @@ def run(dev):
             sync()
             mesh = phase_mesh(dev, tu, ti, tr, su, si, sr, (lay, item_lay),
                               rmse, tmp, smi)
-            del lay, item_lay
             phase_mesh_cli(cli, rmse, tmp, smi)
+            sync()
+            ooc_mesh = phase_ooc_mesh(dev, tu, ti, tr, (lay, item_lay),
+                                      mesh, rmse, cli, tmp, smi)
+            del lay, item_lay
     finally:  # a name already unlinked is a no-op
         get_shm_lib().ycnr_shm_unlink(names["train"].encode())
         get_shm_lib().ycnr_shm_unlink(names["serve"].encode())
@@ -3368,7 +3694,8 @@ def run(dev):
          "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
          "launches": launches["spd_solve"] + serve["train"]["spd_solve"]
          + serve["cold"]["spd_solve"] + ooc["launches"]["spd_solve"]
-         + mesh["launches"]["spd_solve"],
+         + mesh["launches"]["spd_solve"]
+         + ooc_mesh["launches"]["spd_solve"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
@@ -3391,7 +3718,8 @@ def run(dev):
          "launches": blocked_launches["row_gather"]
          + fold_launches["row_gather"] + online["add"]["row_gather"]
          + online["cold"]["row_gather"] + serve["cold"]["row_gather"]
-         + ooc["launches"]["row_gather"] + mesh["launches"]["row_gather"],
+         + ooc["launches"]["row_gather"] + mesh["launches"]["row_gather"]
+         + ooc_mesh["launches"]["row_gather"],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]},
@@ -3422,7 +3750,8 @@ def run(dev):
          "source": "ycnr_tpu_torch/csrc/fused_gram.cu",
          "replaces": "tools/probe_gather.py:207",
          "launches": launches["fused_gram"] + serve["train"]["fused_gram"]
-         + ooc["launches"]["fused_gram"],
+         + ooc["launches"]["fused_gram"]
+         + ooc_mesh["launches"]["fused_gram"],
          "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
          "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
          "bound_by": gram["bound_by"], "library_ms": None},
@@ -3434,7 +3763,7 @@ def run(dev):
          "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
          "launches": sum(ln["spd_solve block"] for ln in (
              launches, serve["train"], serve["cold"], ooc["launches"],
-             mesh["launches"])),
+             mesh["launches"], ooc_mesh["launches"])),
          **k1["n128"]},
     ] + [
         # K1's packed-triangle body, with the launches of the rank-192 path

@@ -1,19 +1,16 @@
 """The port's command line (``python -m ycnr_tpu_torch``) on the CPU: the
-cases of ``tests/test_cli.py`` for the commands the port has (all but the
-out-of-core ones), each held to ``ycnr_tpu.cli.main`` on the same store.
-The JAX package runs with ``--platform cpu``, the port with ``--device
-cpu``. Runs train in float64 (a config file), so the two packages' numbers
-agree to the printed digit; a checkpoint written by one package's
-``train`` is read by the other's ``validate``, ``recommend``, ``serve`` and
-``export``. Shared-memory segments hold float32: ``publish`` /
+cases of ``tests/test_cli.py``, each held to ``ycnr_tpu.cli.main`` on the
+same store. The JAX package runs with ``--platform cpu``, the port with
+``--device cpu``. Runs train in float64 (a config file), so the two
+packages' numbers agree to the printed digit; a checkpoint written by one
+package's ``train`` is read by the other's ``validate``, ``recommend``,
+``serve`` and ``export``. Shared-memory segments hold float32: ``publish`` /
 ``recommend --shm`` are held to ``recommend --ckpt`` on a float32
 checkpoint. Where the JAX package needs its shm libraries, they are built
 from its sources into a temporary directory. ``train --shards 2`` runs two gloo rank
-processes and equals the JAX package's sharded ``train``; what is not
-ported yet (out of core on a mesh) stops with one line naming its ROADMAP
-item. ``train --ooc`` (out of
-core) is held to the resident ``train`` and to ``ycnr_tpu.cli``'s
-``--ooc``."""
+processes and equals the JAX package's sharded ``train``. ``train --ooc``
+(out of core) is held to the resident ``train`` and to ``ycnr_tpu.cli``'s
+``--ooc``, and ``train --ooc --shards 4`` to both too."""
 
 import ctypes
 import io
@@ -424,20 +421,49 @@ def test_train_ooc_rejects_batched_sgd(trained, tmp_path):
                "--device", "cpu"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["train", "--ooc", "--shards", "2"], "item 9"),
-])
-def test_unported_commands_name_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit) as e:
-        tmain(argv + ["--device", "cpu"])
-    assert "not ported yet" in str(e.value) and item in str(e.value)
-    assert "ooc_mesh" in str(e.value) and "\n" not in str(e.value)
+def _epoch_lines(run_dir):
+    drop = ("t", "epoch_s")
+    return [{k: v for k, v in r.items() if k not in drop}
+            for r in _metrics(run_dir)]
 
 
-def test_config_file_ooc_on_a_mesh_names_its_item(tmp_path):
+def test_train_ooc_sharded_matches_resident_and_jax(trained, tmp_path,
+                                                     capsys):
+    """``train --ooc --shards 4`` (four gloo rank processes, the wire
+    sliced across them): ``shards=4, ooc=true`` on every epoch line, the
+    RMSE trajectory of the resident run within 2e-4 (the item Grams sum
+    over the ranks in another order), and the metrics and printed result
+    of ``ycnr_tpu.cli``'s ``train --ooc --shards 4`` on the same store."""
+    common = ["train", "--preset", "ml100k-als", "--store",
+              trained["store"], "--ooc", "--shards", "4", "--epochs", "3",
+              "--rank", "6", "--config", _f64(tmp_path)]
+    t = trun(capsys, *common, "--out", str(tmp_path / "t"))[-1]
+    j = jrun(capsys, *common, "--out", str(tmp_path / "j"))[-1]
+    assert {**t, "out_dir": 0, "final_rmse": 0} == \
+        {**j, "out_dir": 0, "final_rmse": 0}
+    assert abs(t["final_rmse"] - j["final_rmse"]) < 1e-9
+    tm = _epoch_lines(tmp_path / "t" / "ml100k-als")
+    assert tm == _epoch_lines(tmp_path / "j" / "ml100k-als")
+    lines = [r for r in tm if "rmse_test" in r]
+    assert [(r["shards"], r["ooc"]) for r in lines] == [(4, True)] * 3
+    res = [r["rmse_test"] for r in _metrics(os.path.dirname(trained["t"]))
+           if "rmse_test" in r]
+    assert [r["rmse_test"] for r in lines] == pytest.approx(res, abs=2e-4)
+
+
+def test_config_file_ooc_on_a_mesh_trains(trained, tmp_path, capsys):
+    """A config file's ``"ooc": true`` with ``"mesh": {"n_shards": 2}``
+    trains out of core on two ranks, as ``ycnr_tpu.cli`` does."""
     cfg = _f64(tmp_path, {"ooc": True, "mesh": {"n_shards": 2}})
-    with pytest.raises(SystemExit, match="item 9"):
-        tmain(["train", "--config", cfg, "--device", "cpu"])
+    common = ["train", "--preset", "ml100k-als", "--store",
+              trained["store"], "--epochs", "2", "--rank", "6", "--config",
+              cfg]
+    trun(capsys, *common, "--out", str(tmp_path / "t"))
+    jrun(capsys, *common, "--out", str(tmp_path / "j"))
+    tm = _epoch_lines(tmp_path / "t" / "ml100k-als")
+    assert tm == _epoch_lines(tmp_path / "j" / "ml100k-als")
+    assert [(r["shards"], r["ooc"]) for r in tm if "rmse_test" in r] == \
+        [(2, True)] * 2
 
 
 def test_train_sharded_matches_jax(trained, tmp_path, capsys):

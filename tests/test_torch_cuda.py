@@ -829,3 +829,83 @@ def test_sharded_train_two_gloo_ranks_on_one_card(dev, tmp_path):
     np.testing.assert_allclose(got.rmse_history, ref.rmse_history, rtol=0,
                                atol=1e-4)
     assert not got.state.U[-1].any() and not got.state.V[-1].any()
+
+
+# --- out of core on the mesh (parallel/ooc_mesh.py) -------------------------
+
+@pytest.mark.parametrize("algo", ["als", "ials"])
+def test_sharded_ooc_epoch_on_the_card(dev, algo):
+    """Two gloo thread ranks on cuda:0, bf16 gathers: the streamed tier
+    (chunks of one block) gives the pinned tier's bits; K1 launches, with
+    ``fused_gram`` (ALS-WR) or ``row_gather`` (iALS); the gathered factors
+    lie within 1e-3 of the same epoch's plain version on the CPU (f32,
+    bf16-rounded gathers; other summation order); trash rows 0."""
+    from ycnr_tpu_torch.models.base import init_state
+    from ycnr_tpu_torch.parallel import ooc_mesh as om
+    from ycnr_tpu_torch.parallel import shard as sh
+    from ycnr_tpu_torch.parallel.mesh import run_ranks
+
+    u, i, r = _ooc_problem()
+    sw, meta = om.build_sharded_wire(u, i, r, 3000, 800, 2, rank_hint=32,
+                                     target_bytes=1 << 20, max_groups=4)
+    alpha = None if algo == "als" else 2.0
+
+    def run(device, tier):
+        def rank(m):
+            st = sh.scatter_state(init_state(3000, 800, 32, seed=1,
+                                             device=device), meta, m)
+            if tier == "pinned":
+                ep = om.make_sharded_ooc_epoch(
+                    m, om.put_sharded_wire(sw, m), 0.05, alpha=alpha,
+                    gather_bf16=True)
+                st = ep(st)
+            else:
+                ep = om.make_sharded_ooc_epoch(m, None, 0.05, alpha=alpha,
+                                               gather_bf16=True,
+                                               wire_as_args=True,
+                                               chunk_blocks=1)
+                st = ep(st, om.feed_sharded_wire(sw, m))
+            g = sh.gather_state(st, meta, m)
+            return g.U.cpu(), g.V.cpu(), bool(st.U[-1].any())
+
+        return run_ranks(rank, 2, device=device)
+
+    g0, f0, s0 = rg.launches, fg.launches, sp.launches
+    pinned = run(dev, "pinned")
+    torch.cuda.synchronize()
+    assert sp.launches > s0
+    assert (fg.launches > f0) if algo == "als" else (rg.launches > g0)
+    streamed = run(dev, "streamed")
+    plain = run("cpu", "pinned")[0]
+    for a, b in zip(pinned, streamed):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert not a[2]
+    for got, want in zip(pinned[0][:2], plain[:2]):
+        assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def test_sharded_ooc_train_two_gloo_ranks_on_one_card(dev):
+    """train(ooc=True) at n_shards=2 over gloo with both ranks on cuda:0,
+    f32: the held-out RMSE within 1e-4 of the CPU float64 run, the
+    gathered state on the card, trash rows 0."""
+    import dataclasses
+
+    from ycnr_tpu_torch.config import MeshConfig, get_preset
+    from ycnr_tpu_torch.data.dataset import load_dataset
+    from ycnr_tpu_torch.train.loop import train
+
+    cfg = get_preset("ml100k-als")
+    cfg = dataclasses.replace(
+        cfg, out_dir=None, mesh=MeshConfig(n_shards=2), ooc=True,
+        als=dataclasses.replace(cfg.als, epochs=3, rank=16),
+        data=dataclasses.replace(cfg.data, source="synthetic", n_users=600,
+                                 n_items=300, n_ratings=20_000))
+    ds = load_dataset(cfg.data, rank_hint=16)
+    got = train(cfg, ds, device="cuda", backend="gloo")
+    f64 = dataclasses.replace(cfg, als=dataclasses.replace(
+        cfg.als, dtype="float64"))
+    ref = train(f64, ds, device="cpu")
+    assert got.state.U.is_cuda
+    np.testing.assert_allclose(got.rmse_history, ref.rmse_history, rtol=0,
+                               atol=1e-4)
+    assert not got.state.U[-1].any() and not got.state.V[-1].any()

@@ -30,6 +30,7 @@ from ycnr_tpu.ops import packed as jpacked
 from ycnr_tpu.ops import sgd_wire as jsgd_wire
 from ycnr_tpu.oracle import numpy_mf as joracle
 from ycnr_tpu.parallel import dual as jdual
+from ycnr_tpu.parallel import ooc_mesh as jooc_mesh
 from ycnr_tpu.parallel import sgd_stream as jpsgd
 from ycnr_tpu.parallel import shard as jshard
 from ycnr_tpu.serve import cache as jcache
@@ -47,6 +48,7 @@ from ycnr_tpu_torch.ops import packed as tpacked
 from ycnr_tpu_torch.ops import sgd_wire as tsgd_wire
 from ycnr_tpu_torch.oracle import numpy_mf as toracle
 from ycnr_tpu_torch.parallel import dual as tdual
+from ycnr_tpu_torch.parallel import ooc_mesh as tooc_mesh
 from ycnr_tpu_torch.parallel import sgd_stream as tpsgd
 from ycnr_tpu_torch.parallel import shard as tshard
 from ycnr_tpu_torch.serve import cache as tcache
@@ -339,8 +341,10 @@ def _compact(m, grad_mode, raw=False):
 def _parallel(which):
     """The parallel/ host builders of one package."""
     if which == "jax":
-        return types.SimpleNamespace(sh=jshard, ss=jpsgd, du=jdual)
-    return types.SimpleNamespace(sh=tshard, ss=tpsgd, du=tdual)
+        return types.SimpleNamespace(sh=jshard, ss=jpsgd, du=jdual,
+                                     om=jooc_mesh)
+    return types.SimpleNamespace(sh=tshard, ss=tpsgd, du=tdual,
+                                 om=tooc_mesh)
 
 
 def _np_tree(x):
@@ -395,6 +399,23 @@ def _dual(m, D):
         tu, ti, tr, 90, 50, D, chunk_len=8, rank_hint=8, test_u=su,
         test_i=si, test_r=sr, host_user_layout=True)
     return _np_tree((data, meta, m.du.dual_rated_bits(meta)))
+
+
+def _sharded_wire(m, D, mixed=False):
+    """build_sharded_wire with cold users and items and blocks small enough
+    that slices end in padding blocks. ``mixed``: rank 0's users rate off
+    the half-star grid, so its item view alone would ship raw ratings and
+    the others int8 half-stars (the builder forces raw for all)."""
+    u, i, r = jsynthetic.synthetic_ratings(300, 120, 6000, true_rank=3,
+                                           seed=8)
+    keep = (u < 290) & (i < 117)
+    u, i, r = u[keep], i[keep], r[keep]
+    kw = dict(rank_hint=8, max_groups=4, target_bytes=1 << 13)
+    if mixed:
+        _, meta = m.om.build_sharded_wire(u, i, r, 300, 120, D, **kw)
+        r = np.where(np.isin(u, meta.user_map[0]), r + np.float32(0.1),
+                     r).astype(np.float32)
+    return _np_tree(m.om.build_sharded_wire(u, i, r, 300, 120, D, **kw))
 
 
 def _lpt(m):
@@ -470,6 +491,12 @@ _CASES = {
                                   lambda m: _dual(m, 4)),
     "lpt_partition_skewed_and_cold": (_parallel("jax"), _parallel("torch"),
                                       _lpt),
+    **{f"build_sharded_wire_{D}": (
+        _parallel("jax"), _parallel("torch"),
+        lambda m, D=D: _sharded_wire(m, D)) for D in (1, 2, 3, 4)},
+    **{f"build_sharded_wire_mixed_kinds_{D}": (
+        _parallel("jax"), _parallel("torch"),
+        lambda m, D=D: _sharded_wire(m, D, mixed=True)) for D in (2, 3)},
 }
 
 

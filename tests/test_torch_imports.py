@@ -80,6 +80,7 @@ _SLICE_MODULES = {
     "ycnr_tpu_torch.parallel.shard", "ycnr_tpu_torch.parallel.sgd_stream",
     "ycnr_tpu_torch.parallel.dual", "ycnr_tpu_torch.parallel.rank_main",
     "ycnr_tpu_torch.train.sharded", "ycnr_tpu_torch.examples.sharded_train",
+    "ycnr_tpu_torch.parallel.ooc_mesh",
 }
 
 

@@ -57,19 +57,39 @@ def test_train_rmse_history_matches_jax(tmp_path, algo):
 
 
 def test_train_refuses_what_is_not_ported():
-    """Every algorithm trains now, out of core and sharded too; what is
-    still missing (out of core on a mesh, orbax checkpoints) raises, and
+    """Every algorithm trains now, out of core and sharded too, and out of
+    core on a mesh; what is still missing (orbax checkpoints) raises, and
     out-of-core batched SGD and BPR raise the reference's ValueError."""
-    for kw in (dict(mesh=MeshConfig(n_shards=2), ooc=True),
-               dict(checkpoint_backend="orbax")):
-        for algo in ("als", "sgd", "bpr"):
-            with pytest.raises(NotImplementedError):
-                ttrain(dataclasses.replace(CFG, algorithm=algo, **kw),
-                       device="cpu")
+    for algo in ("als", "sgd", "bpr"):
+        with pytest.raises(NotImplementedError):
+            ttrain(dataclasses.replace(CFG, algorithm=algo,
+                                       checkpoint_backend="orbax"),
+                   device="cpu")
     for algo in ("sgd", "bpr"):  # CFG's SGD is batched
         with pytest.raises(ValueError, match="als/ials"):
             ttrain(dataclasses.replace(CFG, algorithm=algo, ooc=True),
                    device="cpu")
+
+
+@pytest.mark.parametrize("algo,mode,match", [
+    ("sgd", "gram_psum", "on a mesh supports als/ials"),
+    ("bpr", "gram_psum", "on a mesh supports als/ials"),
+    ("als", "item_sharded", "item_sharded is resident-only")])
+def test_ooc_on_a_mesh_raises_the_references_errors(tmp_path, algo, mode,
+                                                    match):
+    """Out of core on a mesh takes ALS-WR / iALS under gram_psum: the
+    other cases raise the JAX package's ValueError, with its message,
+    before anything is built."""
+    cfg = dataclasses.replace(
+        CFG, algorithm=algo, ooc=True,
+        mesh=MeshConfig(n_shards=2, vstep_mode=mode),
+        sgd=dataclasses.replace(CFG.sgd, method="stream"))
+    ds = load_dataset(cfg.data, rank_hint=6)
+    with pytest.raises(ValueError, match=match) as want:
+        jtrain(cfg, ds, out_dir=str(tmp_path / "j"))
+    with pytest.raises(ValueError) as got:
+        ttrain(cfg, ds, device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_train_without_a_device_needs_cuda():

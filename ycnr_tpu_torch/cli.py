@@ -20,8 +20,9 @@ ranks (``train/sharded.py``): D local processes, or with
 --process-id R``, else torchrun's environment) this process's rank of a
 job started elsewhere. ``--dist-backend`` names the backend (default NCCL
 on the card, gloo with ``--device cpu``; NCCL needs a card a rank, gloo
-puts several ranks on one). ``train --ooc --shards D`` stops with one line
-naming the ROADMAP item it waits for.
+puts several ranks on one). ``train --ooc --shards D`` trains out of core
+over D ranks, each with its slice of the rating wire pinned on its device
+(``parallel/ooc_mesh.py``).
 """
 
 from __future__ import annotations
@@ -234,11 +235,7 @@ def _add_train_overrides(p):
 
 
 def _refuse_unported(args):
-    """One line, naming the ROADMAP item, for what the port lacks."""
-    if getattr(args, "ooc", False) and (args.shards or 1) > 1:
-        from ycnr_tpu_torch.train.loop import OOC_MESH
-
-        raise SystemExit(f"{args.cmd}: {OOC_MESH}")
+    """One line for what the port lacks."""
     if args.ckpt_backend == "orbax":
         raise SystemExit(f"{args.cmd} --ckpt-backend orbax: orbax is a JAX "
                          f"package; the port writes npz checkpoints")
@@ -331,10 +328,6 @@ def _build_cfg(args):
         # nobody chose an out_dir -> ./runs; an explicit "" in the config
         # file means "no artifacts" and is honored
         cfg = cfg.replace(out_dir="runs")
-    if cfg.ooc and cfg.mesh.n_shards > 1:  # a config file may ask too
-        from ycnr_tpu_torch.train.loop import OOC_MESH
-
-        raise SystemExit(f"{args.cmd}: {OOC_MESH}")
     return cfg
 
 

@@ -230,6 +230,26 @@ def _gather_solve(F_g, oi, rr, cntf, base_gram, lam, alpha, acc_t,
     return torch.cat(out)
 
 
+def gather_normal_eq(F_g, oi, rr, alpha, acc_t, gather_bf16):
+    """Row gather -> per-entity normal equations (no base Gram, no ridge)
+    of one block, sub-chunked as ``_split_plan`` says: the rating axis
+    parts summed, the row parts concatenated."""
+    NE, R = oi.shape
+    s, sr = _split_plan(NE, R, F_g.shape[1], F_g.element_size())
+    q, qr = NE // s, R // sr
+    As, bs = [], []
+    for a in range(0, NE, q):
+        A = b = None
+        for c in range(0, R, qr):
+            dA, db = bucket_normal_eq(
+                row_gather(F_g, oi[a:a + q, c:c + qr].contiguous()),
+                rr[a:a + q, c:c + qr], alpha, acc_t, gather_bf16)
+            A, b = (dA, db) if A is None else (A + dA, b + db)
+        As.append(A)
+        bs.append(b)
+    return (As[0], bs[0]) if s == 1 else (torch.cat(As), torch.cat(bs))
+
+
 # Decoded slots per decode batch: the blocks of a chunk are decoded
 # together, a batch of consecutive blocks at a time (fewer and larger
 # launches than a decode per block), which bounds the decode's temps
@@ -423,6 +443,39 @@ def _phase_bf16(F, gather_bf16: bool) -> bool:
         F.numel() * 2 <= _BF16_COPY_MAX_BYTES
 
 
+def decoded_blocks(groups, device, rdt, cnt_dtype, prefetch: int,
+                   chunk_blocks):
+    """Yield ``(group index, block index, oi [NE, R] int64, rr [NE, R]
+    rdt, cnt [NE] cnt_dtype, eid [NE] int64)`` for every block of the wire
+    groups, in order: ``_wire_chunks``' walk (a resident group whole, a
+    host group streamed in chunks), each chunk decoded in batches of
+    ``_decode_per`` blocks."""
+    with ChunkStream(device, prefetch) as stream:
+        for (gi, c0), ch in _wire_chunks(groups, stream, chunk_blocks,
+                                         prefetch):
+            g = groups[gi]
+            per = _decode_per(g.cnt.shape[1], g.R)
+            for j0 in range(0, ch[0].shape[0], per):
+                lo, hi_pos, hi_val, rat, cnt, eid = (a[j0:j0 + per]
+                                                     for a in ch)
+                dec = decode_blocks_rect if lo.dim() == 3 else decode_blocks
+                oi, rr = dec(lo, hi_pos, hi_val, rat, cnt, g.R, g.n_other,
+                             rdt)
+                cntf, eid = cnt.to(cnt_dtype), eid.long()
+                for j in range(oi.shape[0]):
+                    yield gi, c0 + j0 + j, oi[j], rr[j], cntf[j], eid[j]
+
+
+def block_rows(F_g, oi, rr, cntf, lam, alpha, base_gram, dtype,
+               gather_bf16: bool, fused: bool) -> torch.Tensor:
+    """One decoded block's solved rows in ``dtype``: the resident phase's
+    block step (``phase_bucketed``)."""
+    rows = (bucket_fused_rows(F_g, oi, rr, cntf, lam) if fused else
+            _gather_solve(F_g, oi, rr, cntf, base_gram, lam, alpha, dtype,
+                          gather_bf16))
+    return rows.to(dtype)
+
+
 def _phase(E, F, groups, lam, alpha, base_gram, gather_bf16: bool,
            prefetch: int, chunk_blocks, offs=None):
     """Re-solve E's rows against F from wire groups, in place. Rows go to
@@ -432,31 +485,14 @@ def _phase(E, F, groups, lam, alpha, base_gram, gather_bf16: bool,
     F_g = F.to(torch.bfloat16) if gather_bf16 else F
     fused = uses_fused(E.device, E.dtype, alpha, gather_bf16, E.shape[1])
     rdt = torch.bfloat16 if fused else E.dtype
-    with ChunkStream(E.device, prefetch) as stream:
-        for (gi, c0), ch in _wire_chunks(groups, stream, chunk_blocks,
-                                         prefetch):
-            g = groups[gi]
-            NE = g.cnt.shape[1]
-            per = _decode_per(NE, g.R)
-            for j0 in range(0, ch[0].shape[0], per):
-                lo, hi_pos, hi_val, rat, cnt, eid = (a[j0:j0 + per]
-                                                     for a in ch)
-                dec = decode_blocks_rect if lo.dim() == 3 else decode_blocks
-                oi, rr = dec(lo, hi_pos, hi_val, rat, cnt, g.R, g.n_other,
-                             rdt)
-                cntf, eid = cnt.to(E.dtype), eid.long()
-                for j in range(oi.shape[0]):
-                    # the resident phase's block step (phase_bucketed)
-                    rows = (bucket_fused_rows(F_g, oi[j], rr[j], cntf[j], lam)
-                            if fused else
-                            _gather_solve(F_g, oi[j], rr[j], cntf[j],
-                                          base_gram, lam, alpha, E.dtype,
-                                          gather_bf16)).to(E.dtype)
-                    if offs is None:
-                        E[eid[j]] = rows
-                    else:
-                        off = offs[gi][c0 + j0 + j]
-                        E[off:off + NE] = rows
+    for gi, b, oi, rr, cntf, eid in decoded_blocks(
+            groups, E.device, rdt, E.dtype, prefetch, chunk_blocks):
+        rows = block_rows(F_g, oi, rr, cntf, lam, alpha, base_gram, E.dtype,
+                          gather_bf16, fused)
+        if offs is None:
+            E[eid] = rows
+        else:
+            E[offs[gi][b]:offs[gi][b] + oi.shape[0]] = rows
     return E
 
 

@@ -1,8 +1,8 @@
 """Sharded training and serving on ``torch.distributed`` (counterpart of
 ``ycnr_tpu/parallel``): the mesh and its launchers (``mesh.py``), the
 user-sharded epochs with the item-Gram all-reduce (``shard.py``), sharded
-stream SGD (``sgd_stream.py``) and the item-sharded V-step (``dual.py``).
-Out of core on a mesh (``ycnr_tpu/parallel/ooc_mesh.py``) is not ported."""
+stream SGD (``sgd_stream.py``), the item-sharded V-step (``dual.py``) and
+out of core on the mesh (``ooc_mesh.py``)."""
 
 from ycnr_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -10,6 +10,13 @@ from ycnr_tpu_torch.parallel.mesh import (  # noqa: F401
     make_mesh,
     run_ranks,
     spawn_ranks,
+)
+from ycnr_tpu_torch.parallel.ooc_mesh import (  # noqa: F401
+    ShardedWire,
+    build_sharded_wire,
+    feed_sharded_wire,
+    make_sharded_ooc_epoch,
+    put_sharded_wire,
 )
 from ycnr_tpu_torch.parallel.shard import (  # noqa: F401
     ShardedData,

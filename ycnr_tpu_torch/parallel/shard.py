@@ -481,6 +481,15 @@ def _gram_psum_phase_local(mesh: Mesh, F_local: torch.Tensor,
         # padding slots all land on the trash entity n_entities (zeros)
         scatter_add_(A, eid, As)
         scatter_add_(b, eid, bs)
+    return psum_solve(mesh, A, b, entity_deg, lam, alpha, base_gram)
+
+
+def psum_solve(mesh: Mesh, A: torch.Tensor, b: torch.Tensor, entity_deg,
+               lam: float, alpha=None, base_gram=None) -> torch.Tensor:
+    """All-reduce this rank's partial normal equations ``A`` / ``b`` (in
+    place), then the ridge (ALS-WR: ``lam * deg + (deg == 0)``; iALS: the
+    base Gram and ``lam``) and one batched solve over every entity, the
+    same on every rank."""
     mesh.all_reduce_(A)  # the item Gram all-reduce [BASELINE.json:5]
     mesh.all_reduce_(b)
     if alpha is None:
@@ -488,7 +497,7 @@ def _gram_psum_phase_local(mesh: Mesh, F_local: torch.Tensor,
     else:
         A = A + base_gram[None]
         reg = torch.full_like(entity_deg, lam)
-    return guarded_batched_solve(A, b, reg.to(dt))
+    return guarded_batched_solve(A, b, reg.to(A.dtype))
 
 
 def sharded_als_epoch(mesh: Mesh, st: ShardedState, data: ShardedData,

@@ -10,8 +10,10 @@ into shared memory after every epoch (``cfg.publish_shm``). With
 (``models/ooc.py``) and stream SGD from the host stream or its compact
 wire (``ops/sgd_wire.py``), pinned on the device or streamed from host
 memory as ``cfg.ooc_residency`` says. With ``cfg.mesh.n_shards > 1`` it
-trains sharded over ``torch.distributed`` (``train/sharded.py``). Out of
-core on a mesh and orbax checkpoints are not ported and are refused.
+trains sharded over ``torch.distributed`` (``train/sharded.py``), with
+``cfg.ooc`` from the wire sliced across the ranks
+(``parallel/ooc_mesh.py``). Orbax checkpoints are not ported and are
+refused.
 """
 
 from __future__ import annotations
@@ -71,10 +73,6 @@ from ycnr_tpu_torch.train.checkpoint import (
 from ycnr_tpu_torch.train.metrics import MetricsLogger
 
 
-OOC_MESH = ("out of core on a mesh (ycnr_tpu/parallel/ooc_mesh.py) is not "
-            "ported yet (ROADMAP Queue 1, item 9)")
-
-
 @dataclass
 class TrainResult:
     state: MFState
@@ -91,7 +89,14 @@ def _check_supported(cfg: RunConfig):
         raise ValueError(f"ooc_residency must be 'auto', 'device' or "
                          f"'host', got {cfg.ooc_residency!r}")
     if cfg.mesh.n_shards > 1 and cfg.ooc:
-        raise NotImplementedError(OOC_MESH)
+        if cfg.algorithm not in ("als", "ials"):
+            raise ValueError(
+                "ooc=True on a mesh supports als/ials (mode-A wire "
+                "sharding, parallel/ooc_mesh.py); sgd/bpr stream-OOC "
+                "is single-chip")
+        if cfg.mesh.vstep_mode == "item_sharded":
+            raise ValueError("ooc=True shards the wire mode-A "
+                             "(gram_psum); item_sharded is resident-only")
     if cfg.ooc and not (cfg.algorithm in ("als", "ials")
                         or (cfg.algorithm == "sgd"
                             and cfg.sgd.method == "stream")):
@@ -303,6 +308,9 @@ def train(cfg: RunConfig, dataset: Optional[Dataset] = None,
     ``cfg.mesh.n_shards > 1`` trains sharded (``train/sharded.py``): as
     the rank of ``mesh`` when given, as this process's rank inside a
     process group, else over ``n_shards`` rank processes started here.
+    With ``cfg.ooc`` (ALS-WR / iALS, gram_psum) each rank trains from its
+    slice of the rating wire pinned on its device, whatever
+    ``cfg.ooc_residency`` says, as the JAX package does.
     ``backend`` (for that launch) None means NCCL on the card and gloo
     with ``device="cpu"``; NCCL needs a card a rank."""
     _check_supported(cfg)

@@ -1,6 +1,6 @@
 """Sharded training through ``train()`` (counterpart of
-``_train_sharded``, ``_train_dual`` and ``_log_serving_metric_sharded`` of
-``ycnr_tpu/train/loop.py``).
+``_train_sharded``, ``_train_sharded_ooc``, ``_train_dual`` and
+``_log_serving_metric_sharded`` of ``ycnr_tpu/train/loop.py``).
 
 ``train(cfg)`` with ``cfg.mesh.n_shards = D > 1`` comes here and runs in
 one of three ways:
@@ -11,8 +11,9 @@ one of three ways:
   CLI's ``--distributed``, torchrun): as this process's rank;
 * outside any process group: it starts D rank processes itself
   (``parallel.mesh.spawn_ranks``; the dataset's arrays written once to a
-  temporary ``.npy`` set) and returns rank 0's gathered ``TrainResult``,
-  as the JAX package's one call does on one host.
+  temporary ``.npy`` set, with ``cfg.ooc`` the sharded wire built here
+  once) and returns rank 0's gathered ``TrainResult``, as the JAX
+  package's one call does on one host.
 
 In each, rank 0 alone writes the metrics, the checkpoints and the shm
 segment. The JAX package's multi-process job writes from every process
@@ -69,12 +70,22 @@ def train_sharded(cfg: RunConfig, dataset: Optional[Dataset], resume,
         return _train_sharded(cfg, ds, out, resume, warm_start, mesh)
     dev = resolve_device(device, "train()")  # no card: say so first
     ds = dataset or load_dataset(cfg.data, rank_hint=params.rank)
+    arrays = {k: getattr(ds, k) for k in _DS_ARRAYS}
+    wire = None
+    if cfg.ooc:
+        # the wire is built once, here, and each rank memory-maps its
+        # slice of the .npy set
+        from ycnr_tpu_torch.parallel.ooc_mesh import split_wire
+
+        sw, meta = _build_wire(cfg, ds, params)
+        skel, leaves = split_wire(sw)
+        arrays.update(leaves)
+        wire = (skel, meta)
     res = spawn_ranks(
         "ycnr_tpu_torch.train.sharded:rank_train", D, backend=backend,
-        device=device,
-        arrays={k: getattr(ds, k) for k in _DS_ARRAYS},
+        device=device, arrays=arrays,
         kwargs=dict(cfg=cfg, ds_meta=_ds_meta(ds), out=out, resume=resume,
-                    warm_start=warm_start))
+                    warm_start=warm_start, wire=wire))
     dtype = getattr(torch, params.dtype)
     state = state_from_numpy(*res["state"], device=dev, dtype=dtype)
     return TrainResult(state=state, dataset=ds, rmse_history=res["history"],
@@ -87,11 +98,18 @@ def _ds_meta(ds: Dataset) -> dict:
                 rank_hint=ds.rank_hint)
 
 
-def rank_train(mesh, cfg, ds_meta, out, resume, warm_start, **arrays):
+def rank_train(mesh, cfg, ds_meta, out, resume, warm_start, wire=None,
+               **arrays):
     """One rank process of ``train()``'s own launch; rank 0 returns the
-    gathered state as NumPy and the history."""
-    ds = Dataset(**ds_meta, **arrays)
-    res = _train_sharded(cfg, ds, out, resume, warm_start, mesh)
+    gathered state as NumPy and the history. ``wire``: the launcher's
+    sharded wire (``split_wire``'s skeleton, its ``ShardedMeta``), whose
+    arrays come with the dataset's."""
+    ds = Dataset(**ds_meta, **{k: arrays[k] for k in _DS_ARRAYS})
+    if wire is not None:
+        from ycnr_tpu_torch.parallel.ooc_mesh import join_wire
+
+        wire = (join_wire(wire[0], arrays), wire[1])
+    res = _train_sharded(cfg, ds, out, resume, warm_start, mesh, wire)
     return {"state": to_numpy(res.state), "history": res.rmse_history}
 
 
@@ -152,7 +170,7 @@ def _epoch_loop(cfg: RunConfig, params, mesh, metrics, out, write: bool,
 
 
 def _train_sharded(cfg: RunConfig, ds: Dataset, out, resume, warm_start,
-                   mesh):
+                   mesh, wire=None):
     from ycnr_tpu_torch.parallel.shard import (
         build_bpr_bits,
         build_sharded_data,
@@ -184,6 +202,9 @@ def _train_sharded(cfg: RunConfig, ds: Dataset, out, resume, warm_start,
             and cfg.algorithm in ("als", "ials")):
         return _train_dual(cfg, ds, out, resume, warm_start, mesh, write,
                            metrics, params, dtype)
+    if cfg.ooc:
+        return _train_sharded_ooc(cfg, ds, out, resume, warm_start, mesh,
+                                  write, metrics, params, dtype, wire)
     sgd_stream = cfg.algorithm == "sgd" and cfg.sgd.method == "stream"
     host, meta = build_sharded_data(
         ds.train_u, ds.train_i, ds.train_r, ds.n_users, ds.n_items, D,
@@ -257,6 +278,74 @@ def _train_sharded(cfg: RunConfig, ds: Dataset, out, resume, warm_start,
                          lambda: gather_state(st, meta, mesh))
     if cfg.measure_serving:
         _log_serving_metric_sharded(cfg, ds, st, data, meta, mesh, metrics)
+    if gstate is None:
+        gstate = gather_state(st, meta, mesh)
+    return TrainResult(state=gstate, dataset=ds, rmse_history=history,
+                       out_dir=out)
+
+
+def _build_wire(cfg: RunConfig, ds: Dataset, params):
+    """The stacked host wire of a sharded out-of-core run and its meta."""
+    from ycnr_tpu_torch.parallel.ooc_mesh import build_sharded_wire
+
+    return build_sharded_wire(ds.train_u, ds.train_i, ds.train_r,
+                              ds.n_users, ds.n_items, cfg.mesh.n_shards,
+                              rank_hint=params.rank,
+                              max_groups=cfg.data.max_groups)
+
+
+def _train_sharded_ooc(cfg: RunConfig, ds: Dataset, out, resume, warm_start,
+                       mesh, write, metrics, params, dtype, wire):
+    """Out of core on the mesh (``parallel/ooc_mesh.py``, ALS-WR / iALS):
+    the user-view wire sliced across the ranks, per-rank item-view wires,
+    the item-Gram all-reduce. Each rank pins its slice of the wire on its
+    device, whatever ``ooc_residency`` says, as the JAX package does (the
+    streamed tier is ``feed_sharded_wire`` with ``make_sharded_ooc_epoch(
+    ..., wire_as_args=True)``). ``wire``: the launcher's (stacked host
+    wire, meta), else built here."""
+    from ycnr_tpu_torch.models.ooc import wire_nbytes
+    from ycnr_tpu_torch.parallel.ooc_mesh import (make_sharded_ooc_epoch,
+                                                  put_sharded_wire,
+                                                  put_test_rows)
+    from ycnr_tpu_torch.parallel.shard import (gather_state, scatter_state,
+                                               sharded_rmse)
+    from ycnr_tpu_torch.train.loop import (TrainResult, _shm_writer,
+                                           _start_state)
+
+    D = cfg.mesh.n_shards
+    sw, meta = wire if wire is not None else _build_wire(cfg, ds, params)
+    sw = put_sharded_wire(sw, mesh)
+    metrics.log(event="ooc_residency", mesh_shards=D,
+                hbm_pinned_bytes=wire_nbytes(sw.ugroups, sw.igroups),
+                streamed_bytes=0)
+
+    data = put_test_rows(meta, ds.test_u, ds.test_i, ds.test_r, mesh,
+                         dtype)
+    gstate, start_epoch, history = _start_state(
+        cfg, ds, params, resume, warm_start, metrics, 0.0, dtype,
+        mesh.device)
+    gstate = zero_cold_entities(gstate, ds.train_u, ds.train_i)
+    shm_writer = _shm_writer(cfg, gstate) if write else None
+    st = scatter_state(gstate, meta, mesh)
+
+    epoch_fn = make_sharded_ooc_epoch(
+        mesh, sw, params.lam,
+        alpha=cfg.ials.alpha if cfg.algorithm == "ials" else None,
+        gather_bf16=params.gather_dtype == "bfloat16")
+
+    def run_epoch(epoch):
+        nonlocal st
+        st = epoch_fn(st)
+
+    gstate = _epoch_loop(
+        cfg, params, mesh, metrics, out, write, start_epoch, history,
+        shm_writer, run_epoch,
+        lambda: (sharded_rmse(mesh, st, data, meta.test_n), None),
+        lambda: gather_state(st, meta, mesh), ooc=True)
+    if cfg.measure_serving:
+        metrics.log(event="serving_metric_skipped",
+                    note="measure_serving needs the resident sharded "
+                         "layout; serve from the checkpoint instead")
     if gstate is None:
         gstate = gather_state(st, meta, mesh)
     return TrainResult(state=gstate, dataset=ds, rmse_history=history,
