@@ -6,11 +6,10 @@ Run from the repository root:  python3 chip_smoke.py
 2. build: compiles the CUDA kernels (nvcc) and the native MovieLens parser
    (g++) from ``ycnr_tpu_torch/csrc``; the parser is held to the Python
    parser on a 200,000-row file;
-3. K1 (batched SPD solve) against its plain version in float64, n = 10,
-   32, 64, 128, with padding and ill-conditioned (guarded) systems; timed
-   beside the plain solve and ``torch.linalg.solve`` at B = 20,000, and
-   alone at B = 8 and B = 256, at n = 64 (warp body) and n = 128 (block
-   body);
+3. K1's warp body (batched SPD solve, n <= 64) against its plain version
+   in float64, n = 10, 32, 64, with padding and ill-conditioned (guarded)
+   systems; timed at n = 64 beside the plain solve and
+   ``torch.linalg.solve`` at B = 20,000, and alone at B = 8 and B = 256;
 4. K2 (fused masked scorer) on one MovieLens-20M-width serving block and
    on one ragged block (rank 10), bf16 and f32 score buffers: within its
    stated bound of its plain version and of a float64 sum, rated and
@@ -58,14 +57,20 @@ Run from the repository root:  python3 chip_smoke.py
     gather + K1) against a float64 solve, ``compact``, ``popular``,
     ``similar`` / ``precompute_similar`` against a float64 cosine,
     ``recommend_cold``;
-15. K1's packed-triangle body (128 < n <= 256) at n = 129, 192 and 256 on
-    20,000 guarded systems against a float64 solve (within cond(A) n 2^-24),
-    padding rows exactly 0, timed at n = 192 and 256 beside its plain
-    version, ``torch.linalg.solve`` and the bound (run right after item 3);
-16. ALS-WR at rank 192 with bf16 gathers through ``train()`` on the
-    ML-20M-shaped set, 2 epochs: row gather -> einsum -> K1, no
-    ``fused_gram``; RMSE falls, trash and cold rows 0; then fold-in of 256
-    users at rank 192 and, from a random start, at rank 256;
+15. K1's tiled body (64 < n <= 256) at n = 65, 96, 127, 128, 129, 160,
+    192, 250 and 256 on 20,000 guarded systems against a float64 solve
+    (within cond(A) n 2^-24 on the first 512), padding rows exactly 0, and
+    on 64 well-conditioned systems against its plain-torch mirror
+    (``tests/k1_tiled_mirror.py``, 1e-5); timed at n = 96, 128,
+    192 and 256 as in item 3 (run right after item 3);
+16. ALS-WR at ranks 128 and 192 with bf16 gathers through ``train()`` on
+    the ML-20M-shaped set, 2 epochs each: at 128 ``fused_gram`` -> K1's
+    tiled body, at 192 row gather -> einsum -> K1, no ``fused_gram``; RMSE
+    falls, trash and cold rows 0, held-out RMSE within 2e-6 of the same run
+    with the solve patched to the plain version in float64, while a control
+    run with A and b rounded to TF32 differs by more; s/epoch, one
+    more epoch by kernel (K1's share); then fold-in of 256 users at rank
+    192 and, from a random start, at rank 256;
 17. the command line in process (``ycnr_tpu_torch.cli.main``) at full
     width from a ``RatingsStore`` of the same arrays: ``train --preset
     ml20m-als`` (the main path's split through a config file) held to an
@@ -130,7 +135,8 @@ Run from the repository root:  python3 chip_smoke.py
     --dist-backend gloo --epochs 2`` from item 17's store.
 
 Every path runs with the kernels' launch counts set to 0 just before it,
-and each kernel must have launched on the paths that use it. Every failed
+and each kernel must have launched on the paths that use it; K1's tiled
+body launches on no rank-64 path. Every failed
 check raises, so the exit code is nonzero. Stdout ends with the card's
 name and power limit (``nvidia-smi``), a JSON line of per-kernel results
 (time, plain time, one PyTorch call's time, bound) and, last,
@@ -238,11 +244,15 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def k1_bound_ms(n: int, B: int):
-    """K1's bound for B systems of size n: read A and b, write x, against
-    the Cholesky factorization's n^3/3 flops and the two triangular
-    solves' 2 n^2 (an FMA counts two), on the f32 CUDA cores."""
-    return bound_ms(4 * B * (n * n + 2 * n), B * (n ** 3 / 3 + 2 * n * n),
-                    PEAK_F32)
+    """K1's bound for B systems of size n: read A's lower triangle and b,
+    write x, against the Cholesky factorization's n^3/3 flops and the two
+    triangular solves' 2 n^2 (an FMA counts two), on the f32 CUDA cores.
+    A is symmetric (its callers symmetrize it: ops/gram.py, fused_gram's
+    epilogue), so n (n + 1) / 2 of its floats are all that a solve must
+    read; counting the whole square would put the bound above the time of
+    a body that reads only the triangle."""
+    return bound_ms(4 * B * (n * (n + 1) // 2 + 2 * n),
+                    B * (n ** 3 / 3 + 2 * n * n), PEAK_F32)
 
 
 def guarded_systems(n: int, batch: int, seed: int, dev):
@@ -272,11 +282,15 @@ def guarded_systems(n: int, batch: int, seed: int, dev):
 
 
 def phase_k1(dev) -> dict:
+    """K1's warp body (n <= 64) at n = 10, 32 and 64 on 20,000 guarded
+    systems against a float64 solve, padding rows exactly 0; timed at n =
+    64 (the main path's) beside the plain version, torch.linalg.solve and
+    the bound, and over CUDA graphs at B = 8 and 256."""
     from ycnr_tpu_torch.ops.spd_solve import spd_solve_cuda, \
         spd_solve_reference
 
     worst_rel = worst_abs = 0.0
-    for n in (10, 32, 64, 128):
+    for n in (10, 32, 64):
         A, b, pad = guarded_systems(n, 20_000, seed=n, dev=dev)
         x = spd_solve_cuda(A, b)
         ref = spd_solve_reference(A.double(), b.double())
@@ -298,74 +312,86 @@ def phase_k1(dev) -> dict:
         worst_abs = max(worst_abs, err.max().item())
     n, B = 64, 20_000
     A, b, _ = guarded_systems(n, B, seed=64, dev=dev)
-    # in turns: plain, kernel, library, kernel, plain
-    plain_ms = cuda_ms(lambda: spd_solve_reference(A, b))
-    ms = cuda_ms(lambda: spd_solve_cuda(A, b))
-    lib_ms = cuda_ms(lambda: torch.linalg.solve(A, b))
-    ms = min(ms, cuda_ms(lambda: spd_solve_cuda(A, b)))
-    plain_ms = min(plain_ms, cuda_ms(lambda: spd_solve_reference(A, b)))
-    bnd = k1_bound_ms(n, B)
-    log(f"K1 n={n} B={B}: kernel {ms:.4f} ms, plain (torch.linalg."
-        f"cholesky + cholesky_solve, f32) {plain_ms:.4f} ms, "
-        f"torch.linalg.solve {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
-        f"({bnd[1]})")
-    from ycnr_tpu_torch.tools.probe_gather import graph_ms
-
-    # calls with few systems (the epoch's longest rating lists come 8 to a
-    # call): device time over a CUDA graph, as a call is shorter than the
-    # host's launch
-    for small in (8, 256):
-        As, bs = A[:small].contiguous(), b[:small].contiguous()
-        log(f"K1 n={n} B={small}: kernel "
-            f"{graph_ms(lambda: spd_solve_cuda(As, bs), 20):.4f} ms "
-            f"(device time, CUDA graph of 20 calls)")
-    # the block body (64 < n <= 128): on no preset's path, timed all the same
-    n = 128
-    A, b, pad = guarded_systems(n, B, seed=n, dev=dev)
-    ref = spd_solve_reference(A.double(), b.double())
-    x = spd_solve_cuda(A, b)
-    sync()
-    n128_abs = (x.double() - ref).abs().max().item()
-    del ref, x
-    plain128 = cuda_ms(lambda: spd_solve_reference(A, b), iters=5)
-    ms128 = cuda_ms(lambda: spd_solve_cuda(A, b), iters=5)
-    lib128 = cuda_ms(lambda: torch.linalg.solve(A, b), iters=5)
-    ms128 = min(ms128, cuda_ms(lambda: spd_solve_cuda(A, b), iters=5))
-    plain128 = min(plain128, cuda_ms(lambda: spd_solve_reference(A, b),
-                                     iters=5))
-    bnd128 = k1_bound_ms(n, B)
-    small = {}
-    for m in (8, 256):
-        As, bs = A[:m].contiguous(), b[:m].contiguous()
-        small[m] = graph_ms(lambda: spd_solve_cuda(As, bs), 20)
-    log(f"K1 n={n} B={B} (block body): kernel {ms128:.4f} ms, plain "
-        f"(torch.linalg.cholesky + cholesky_solve, f32) {plain128:.4f} ms, "
-        f"torch.linalg.solve {lib128:.4f} ms, bound {bnd128[0]:.4f} ms "
-        f"({bnd128[1]}), {100 * bnd128[0] / ms128:.1f}% of it; B=8 "
-        f"{small[8]:.4f} ms, B=256 {small[256]:.4f} ms (device time, CUDA "
-        f"graph of 20 calls); max abs err {n128_abs:.3e}")
-    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1],
-            "n128": {"max_abs_err": n128_abs, "ms": ms128,
-                     "plain_ms": plain128, "library_ms": lib128,
-                     "bound_ms": bnd128[0], "bound_by": bnd128[1]}}
+    out = k1_times(A, b, iters=10)
+    out.update(max_abs_err=worst_abs, max_rel_err=worst_rel)
+    return out
 
 
-def phase_k1_wide(dev) -> dict:
-    """K1's packed-triangle body (128 < n <= 256) at n = 129, 192 and 256,
-    B = 20,000 guarded systems (padding systems included; B = 8 and 256 are
-    its first systems): held to a float64 solve within K1_RTOL over all
-    systems and within f32 Cholesky's forward error cond(A) n 2^-24 on the
-    first 512 (eigenvalues in float64), padding rows exactly 0; at n =
-    192 and 256 timed beside the plain version (cholesky + cholesky_solve),
-    torch.linalg.solve and the bound."""
+def k1_times(A, b, iters: int) -> dict:
+    """K1 on A, b timed in turns with its plain version (cholesky +
+    cholesky_solve) and torch.linalg.solve (plain, kernel, library,
+    kernel, plain; the least of each kept), beside the bound; and over
+    CUDA graphs of 20 calls on the first 8 and 256 systems (the epoch's
+    longest rating lists come 8 to a call: a call is shorter than the
+    host's launch)."""
     from ycnr_tpu_torch.ops.spd_solve import spd_solve_cuda, \
         spd_solve_reference
     from ycnr_tpu_torch.tools.probe_gather import graph_ms
 
+    B, n = b.shape
+    plain_ms = cuda_ms(lambda: spd_solve_reference(A, b), iters, warmup=1)
+    ms = cuda_ms(lambda: spd_solve_cuda(A, b), iters, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.linalg.solve(A, b), iters, warmup=1)
+    ms = min(ms, cuda_ms(lambda: spd_solve_cuda(A, b), iters, warmup=1))
+    plain_ms = min(plain_ms, cuda_ms(lambda: spd_solve_reference(A, b),
+                                     iters, warmup=1))
+    bnd = k1_bound_ms(n, B)
+    small = {}
+    for m in (8, 256):
+        As, bs = A[:m].contiguous(), b[:m].contiguous()
+        small[m] = graph_ms(lambda: spd_solve_cuda(As, bs), 20)
+    log(f"K1 n={n} B={B}: kernel {ms:.4f} ms, plain (torch.linalg."
+        f"cholesky + cholesky_solve, f32) {plain_ms:.4f} ms, "
+        f"torch.linalg.solve {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}), {100 * bnd[0] / ms:.1f}% of it; B=8 "
+        f"{small[8]:.4f} ms, B=256 {small[256]:.4f} ms (device time, CUDA "
+        f"graph of 20 calls)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "b8_ms": small[8],
+            "b256_ms": small[256]}
+
+
+# K1's tiled body: the sizes held to float64 and to its mirror, and the
+# sizes timed (rank 96 and 128 run fused_gram + K1; 192 and 256 the
+# einsum route and fold-in)
+K1_WIDE_NS = (65, 96, 127, 128, 129, 160, 192, 250, 256)
+K1_TIMED_NS = (96, 128, 192, 256)
+# the kernel against its plain-torch mirror (tests/k1_tiled_mirror.py) on
+# well-conditioned systems: the same operations in the same order, the
+# kernel's multiply-adds fused, the mirror's rounded twice
+K1_MIRROR_RTOL = 1e-5
+
+
+def k1_tiled_mirror():
+    """tests/k1_tiled_mirror.py, loaded from its path (``tests/`` stays
+    off ``sys.path``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "k1_tiled_mirror.py")
+    spec = importlib.util.spec_from_file_location("k1_tiled_mirror", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_k1_wide(dev) -> dict:
+    """K1's tiled body (64 < n <= 256) at every n of K1_WIDE_NS, on B =
+    20,000 guarded systems (padding systems among them): held to a float64
+    solve within K1_RTOL over all systems and within f32 Cholesky's
+    forward error cond(A) n 2^-24 on the first 512 (eigenvalues in
+    float64), padding rows exactly 0; on 64 well-conditioned systems held
+    to its plain-torch mirror within K1_MIRROR_RTOL; at K1_TIMED_NS timed
+    (``k1_times``)."""
+    from ycnr_tpu_torch.ops.spd_solve import spd_solve_cuda, \
+        spd_solve_reference
+    from ycnr_tpu_torch.tools.bench_solve_score import spd_systems
+
+    tiled_solve_mirror = k1_tiled_mirror().tiled_solve_mirror
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
     out = {}
-    for n in (129, 192, 256):
+    for n in K1_WIDE_NS:
         B = 20_000
         A, b, pad = guarded_systems(n, B, seed=n, dev=dev)
         x = spd_solve_cuda(A, b)
@@ -379,41 +405,30 @@ def phase_k1_wide(dev) -> dict:
         w = torch.linalg.eigvalsh(A[:512][live].double())
         bound = w[:, -1] / w[:, 0] * n * 2.0 ** -24
         within = bool((rel[:512][live] <= bound).all())
+        Aw, bw = spd_systems(64, n, gen, dev)
+        Aw[:3] = torch.eye(n, device=dev)
+        bw[:3] = 0
+        xw = spd_solve_cuda(Aw, bw)
+        xm = tiled_solve_mirror(Aw.cpu(), bw.cpu())
+        mrel = ((xw.cpu() - xm).abs().amax(1)
+                / xm.abs().amax(1).clamp_min(1e-30))[3:].max().item()
         log(f"K1 n={n} B={B}: max rel err {rel[~pad].max().item():.3e}, max "
             f"abs {err.max().item():.3e}; first 512: cond(A) up to "
             f"{(w[:, -1] / w[:, 0]).max().item():.3e}, every system within "
             f"cond(A) n 2^-24: {within}; padding rows exactly 0: "
-            f"{int(pad.sum())}")
+            f"{int(pad.sum())}; against its mirror (64 systems) max rel "
+            f"{mrel:.3e}")
         check(rel[~pad].max().item() < K1_RTOL,
               f"K1 n={n}: max rel err < {K1_RTOL}")
         check(within, f"K1 n={n}: within cond(A) n 2^-24 of float64")
+        check(bool((xw[:3] == 0).all()) and mrel <= K1_MIRROR_RTOL,
+              f"K1 n={n}: within {K1_MIRROR_RTOL} of its mirror, padding "
+              f"exactly 0")
         max_abs = err.max().item()
         del ref, err, w
-        if n == 129:
-            continue
-        # in turns: plain, kernel, library, kernel, plain
-        plain_ms = cuda_ms(lambda: spd_solve_reference(A, b), iters=3,
-                           warmup=1)
-        ms = cuda_ms(lambda: spd_solve_cuda(A, b), iters=3, warmup=1)
-        lib_ms = cuda_ms(lambda: torch.linalg.solve(A, b), iters=3, warmup=1)
-        ms = min(ms, cuda_ms(lambda: spd_solve_cuda(A, b), iters=3,
-                             warmup=1))
-        plain_ms = min(plain_ms, cuda_ms(lambda: spd_solve_reference(A, b),
-                                         iters=3, warmup=1))
-        bnd = k1_bound_ms(n, B)
-        small = {}
-        for m in (8, 256):
-            As, bs = A[:m].contiguous(), b[:m].contiguous()
-            small[m] = graph_ms(lambda: spd_solve_cuda(As, bs), 20)
-        log(f"K1 n={n} B={B}: kernel {ms:.4f} ms, plain (torch.linalg."
-            f"cholesky + cholesky_solve, f32) {plain_ms:.4f} ms, "
-            f"torch.linalg.solve {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
-            f"({bnd[1]}), {100 * bnd[0] / ms:.1f}% of it; B=8 "
-            f"{small[8]:.4f} ms, B=256 {small[256]:.4f} ms (device time, "
-            f"CUDA graph of 20 calls)")
-        out[n] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, "bound_ms": bnd[0],
-                  "bound_by": bnd[1]}
+        if n in K1_TIMED_NS:
+            out[n] = k1_times(A, b, iters=5)
+            out[n]["max_abs_err"] = max_abs
         del A, b, x
         torch.cuda.empty_cache()
     return out
@@ -779,8 +794,8 @@ def read_launches() -> dict:
         spd_solve
 
     return {"spd_solve": spd_solve.launches,
-            # K1's block body (64 < n <= 128), counted apart for its row
-            "spd_solve block": spd_solve.body_launches["block"],
+            # K1's tiled body (64 < n <= 256), counted apart for its rows
+            "spd_solve tiled": spd_solve.body_launches["tiled"],
             "fused_scores": fused_topn.launches,
             "row_gather": row_gather.launches,
             "take_along_rows": row_gather.take_launches,
@@ -965,72 +980,180 @@ def phase_fold_in(state, tu, ti, tr) -> dict:
     return launches
 
 
-def phase_rank192(dev, tu, ti, tr, su, si, sr, smi: str) -> dict:
-    """ALS-WR at rank 192 with bf16 gathers through train() on the
-    ML-20M-shaped set, 2 epochs: above fused_gram's width the phase takes
-    row gather -> einsum -> K1 (the packed body at n = 192), so fused_gram
-    must not launch; held-out RMSE falls, trash and cold rows stay 0; one
-    more epoch on the same layouts profiled by kernel. Then
-    fold-in of 256 users at rank 192 (K1 at n = 192), and at rank 256 from
-    a random start (K1 at n = 256), each against a float64 solve."""
+# held-out RMSE of a wide train() against the same run with the plain
+# solve in float64: K1's f32 rounding is all that differs. Between what
+# K1 reads (4.2e-7 at rank 128, 1.2e-7 at 192) and what the control with
+# A and b rounded to TF32 reads (tf32_solve: 1.0e-5 / 7.8e-6; PERF.md
+# section 2)
+WIDE_F64_RMSE_TOL = 2e-6
+
+
+def float64_solve(A, b):
+    """K1's plain version in float64, returned in A's dtype: the solve of
+    the comparison runs."""
+    from ycnr_tpu_torch.ops.spd_solve import spd_solve_reference
+
+    return spd_solve_reference(A.double(), b.double()).to(A.dtype)
+
+
+def to_tf32(t):
+    """f32 rounded to TF32's 10-bit mantissa (to nearest, ties away)."""
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_solve(A, b):
+    """The control: ``float64_solve`` of A and b rounded to TF32, the
+    inputs a TF32 tensor-core solve would multiply. WIDE_F64_RMSE_TOL must
+    tell its run from the float64 run."""
+    return float64_solve(to_tf32(A.float()), to_tf32(b.float())).to(A.dtype)
+
+
+@contextlib.contextmanager
+def patched_solve(solve):
+    """While open, the bucketed phase's two solve calls (the fused
+    branch's ``bucketed_phase.spd_solve`` and ``gram.guarded_batched_
+    solve``'s ``gram.spd_solve``) go to ``solve``: the same epochs with
+    another solve, and no K1."""
+    from unittest import mock
+
+    from ycnr_tpu_torch.models import bucketed_phase
+    from ycnr_tpu_torch.ops import gram
+
+    with mock.patch.object(bucketed_phase, "spd_solve", solve), \
+            mock.patch.object(gram, "spd_solve", solve):
+        yield
+
+
+def wide_train(dev, rank: int, tu, ti, tr, su, si, sr, tmp: str,
+               smi: str) -> dict:
+    """ALS-WR at ``rank`` with bf16 gathers through train() on the
+    ML-20M-shaped set, 2 epochs (lam 0.05, 8 groups), then the same run
+    from the same start with ``float64_solve`` patched in: held-out RMSE
+    within WIDE_F64_RMSE_TOL at each epoch, RMSE falling, trash and cold
+    rows 0; the control run with ``tf32_solve`` must differ from the
+    float64 run by more than WIDE_F64_RMSE_TOL. Then one more epoch on
+    train()'s own layouts profiled by kernel."""
     from ycnr_tpu_torch.config import ALSConfig, DataConfig, RunConfig
     from ycnr_tpu_torch.data.dataset import Dataset
-    from ycnr_tpu_torch.models.base import init_state
     from ycnr_tpu_torch.models.bucketed_phase import (als_epoch_fn,
-                                                      device_bucketed)
+                                                      device_bucketed,
+                                                      uses_fused)
     from ycnr_tpu_torch.train.loop import train
 
     n_users, n_items = MAIN["n_users"], MAIN["n_items"]
-    cfg = RunConfig(name="rank192", algorithm="als",
+    what = f"rank {rank}"
+    cfg = RunConfig(name=f"rank{rank}", algorithm="als",
                     data=DataConfig(chunk_len=32, max_groups=MAIN["groups"]),
-                    als=ALSConfig(rank=192, lam=MAIN["lam"], epochs=2,
+                    als=ALSConfig(rank=rank, lam=MAIN["lam"], epochs=2,
                                   gather_dtype="bfloat16"),
-                    out_dir="")
+                    out_dir="", checkpoint_every=0)
     ds = Dataset(n_users=n_users, n_items=n_items, train_u=tu, train_i=ti,
                  train_r=tr, test_u=su, test_i=si, test_r=sr,
-                 mu=float(tr.mean()), chunk_len=32, rank_hint=192)
+                 mu=float(tr.mean()), chunk_len=32, rank_hint=rank)
+    run_dir = os.path.join(tmp, f"rank{rank}")
     sync()
     reset_launches()
     t0 = time.time()
     with shared_bucketed_layouts({}) as built:
-        res = train(cfg, dataset=ds, device=dev)
-    sync()
-    wall = time.time() - t0
-    launches = read_launches()
-    log(f"rank 192 train() (2 epochs, layouts built inside): {wall:.1f} s; "
-        f"held-out rmse {[round(x, 6) for x in res.rmse_history]}; kernel "
-        f"launches {launches}")
-    check(launches["spd_solve"] > 0, "K1 launched at rank 192")
-    check(launches["row_gather"] > 0, "row_gather launched at rank 192")
-    check(launches["fused_gram"] == 0, "fused_gram does not launch above "
-          "its width (the row gather -> einsum -> K1 route)")
-    check(res.rmse_history[1] < res.rmse_history[0], "rank 192: held-out "
-          "rmse falls")
-    check_trash_rows(res.state, "rank 192")
+        res = train(cfg, dataset=ds, out_dir=run_dir, device=dev)
+        sync()
+        wall = time.time() - t0
+        launches = read_launches()
+        t0 = time.time()
+        with patched_solve(float64_solve):
+            ref = train(cfg, dataset=ds, device=dev)
+        sync()
+        wall64 = time.time() - t0
+        with patched_solve(tf32_solve):
+            ctl = train(cfg, dataset=ds, device=dev)
+    s_epoch = [e["epoch_s"] for e in read_events(run_dir)
+               if "rmse_test" in e]
+    diff = [abs(a - b) for a, b in zip(res.rmse_history, ref.rmse_history)]
+    diff_ctl = [abs(a - b) for a, b in zip(ctl.rmse_history,
+                                           ref.rmse_history)]
+    log(f"{what} train() (2 epochs, layouts built inside): {wall:.1f} s, "
+        f"s/epoch {s_epoch}; held-out rmse "
+        f"{[round(x, 6) for x in res.rmse_history]}; with the plain solve "
+        f"in float64 {[round(x, 6) for x in ref.rmse_history]} ({wall64:.1f}"
+        f" s), |diff| {[f'{d:.2e}' for d in diff]}; control (A, b rounded "
+        f"to TF32) {[round(x, 6) for x in ctl.rmse_history]}, |diff| "
+        f"{[f'{d:.2e}' for d in diff_ctl]}; kernel launches {launches}")
+    check(launches["spd_solve tiled"] > 0 and launches["spd_solve tiled"]
+          == launches["spd_solve"], f"{what}: every K1 launch the tiled "
+          f"body's")
+    fused = uses_fused(dev, torch.float32, None, True, rank)
+    check((launches["fused_gram"] > 0) == fused, f"{what}: fused_gram "
+          f"launched exactly when it takes the width")
+    check(len(res.rmse_history) == len(ref.rmse_history) == 2
+          and max(diff) <= WIDE_F64_RMSE_TOL, f"{what}: held-out rmse within "
+          f"{WIDE_F64_RMSE_TOL} of the run with the float64 plain solve")
+    check(len(ctl.rmse_history) == 2 and max(diff_ctl) > WIDE_F64_RMSE_TOL,
+          f"{what}: the TF32 control run differs from the float64 run by "
+          f"more than {WIDE_F64_RMSE_TOL}")
+    check(res.rmse_history[1] < res.rmse_history[0], f"{what}: held-out "
+          f"rmse falls")
+    check_trash_rows(res.state, what)
     cold_u = np.setdiff1d(np.arange(n_users), tu)
     cold_i = np.setdiff1d(np.arange(n_items), ti)
     check(not bool(res.state.U[torch.as_tensor(cold_u, device=dev)].any())
           and not bool(res.state.V[torch.as_tensor(cold_i,
                                                    device=dev)].any()),
-          "rank 192: cold rows stay 0")
+          f"{what}: cold rows stay 0")
     state = res.state
-    del res
+    del res, ref, ctl
     # one more epoch on train()'s own layouts, profiled by kernel
-    ul192, il192 = (device_bucketed(g, torch.float32, dev)
-                    for g in built.values())
-    epoch = als_epoch_fn(ul192, il192, MAIN["lam"], gather_bf16=True)
-    state, _ = profile_breakdown(lambda: epoch(state), "a rank-192 epoch")
-    del ul192, il192, epoch, built
-    f192 = phase_fold_in(state, tu, ti, tr)
+    lays = [device_bucketed(g, torch.float32, dev, rating_dtype=(
+        torch.bfloat16 if fused else None)) for g in built.values()]
+    epoch = als_epoch_fn(*lays, MAIN["lam"], gather_bf16=True)
+    by_kernel = {}
+    state, dev_ms = profile_breakdown(lambda: epoch(state),
+                                      f"a {what} epoch", by_kernel)
+    k1_ms = sum(v for k, v in by_kernel.items() if "spd_solve" in k)
+    fg_ms = sum(v for k, v in by_kernel.items() if "fused_gram" in k)
+    log(f"{what} epoch by kernel: K1 {k1_ms:.3f} ms = "
+        f"{k1_ms / dev_ms:.3f} of {dev_ms:.3f} ms of device time, "
+        f"fused_gram {fg_ms:.3f}; on {smi}")
+    del lays, epoch, built
+    torch.cuda.empty_cache()
+    return {"state": state, "launches": launches, "s_epoch": s_epoch,
+            "k1_ms": k1_ms, "dev_ms": dev_ms}
+
+
+def phase_rank128(dev, tu, ti, tr, su, si, sr, tmp: str, smi: str) -> dict:
+    """ALS-WR at rank 128 (``bench.py --rank 128``): fused_gram at w 128,
+    then K1's tiled body at n = 128 (``wide_train``)."""
+    out = wide_train(dev, 128, tu, ti, tr, su, si, sr, tmp, smi)
+    check(out["launches"]["fused_gram"] > 0, "rank 128: fused_gram "
+          "launched")
+    del out["state"]
+    return out
+
+
+def phase_rank192(dev, tu, ti, tr, su, si, sr, tmp: str, smi: str) -> dict:
+    """ALS-WR at rank 192 through train() (``wide_train``): above
+    fused_gram's width the phase takes row gather -> einsum -> K1 (the
+    tiled body at n = 192), so fused_gram must not launch. Then fold-in of
+    256 users at rank 192 (K1 at n = 192), and at rank 256 from a random
+    start (K1 at n = 256), each against a float64 solve."""
+    from ycnr_tpu_torch.models.base import init_state
+
+    out = wide_train(dev, 192, tu, ti, tr, su, si, sr, tmp, smi)
+    launches = out["launches"]
+    check(launches["row_gather"] > 0, "row_gather launched at rank 192")
+    check(launches["fused_gram"] == 0, "fused_gram does not launch above "
+          "its width (the row gather -> einsum -> K1 route)")
+    f192 = phase_fold_in(out.pop("state"), tu, ti, tr)
     k1_192 = launches["spd_solve"] + f192["spd_solve"]
-    del state
-    st256 = init_state(n_users, n_items, 256, seed=0, device=dev)
+    st256 = init_state(MAIN["n_users"], MAIN["n_items"], 256, seed=0,
+                       device=dev)
     f256 = phase_fold_in(st256, tu, ti, tr)
     del st256
     torch.cuda.empty_cache()
     log(f"K1 launches: n = 192 {k1_192} (train() and fold-in), n = 256 "
         f"{f256['spd_solve']} (fold-in); on {smi}")
-    return {"k1_n192": k1_192, "k1_n256": f256["spd_solve"]}
+    out.update(k1_n192=k1_192, k1_n256=f256["spd_solve"])
+    return out
 
 
 @contextlib.contextmanager
@@ -1813,7 +1936,7 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
     n_users, n_items, rank, lam, g = (MAIN[k] for k in (
         "n_users", "n_items", "rank", "lam", "groups"))
     nnz = len(tr)
-    out = {"launches": dict.fromkeys(("spd_solve", "spd_solve block",
+    out = {"launches": dict.fromkeys(("spd_solve", "spd_solve tiled",
                                       "fused_gram", "row_gather"), 0)}
 
     def count(launches):
@@ -2828,7 +2951,7 @@ def mesh_rank(mesh, tu, ti, tr, su, si, sr, ref_U, ref_V, epochs: int,
     per = torch.tensor([train_ln["spd_solve"], train_ln["row_gather"],
                         serve_ln["fused_scores"] if serve else 0,
                         torch.cuda.max_memory_allocated(dev), float(trash),
-                        train_ln["spd_solve block"]],
+                        train_ln["spd_solve tiled"]],
                        dtype=torch.float64, device=dev)
     out["per_rank"] = [x.tolist() for x in mesh.all_gather(per)]
     return out
@@ -3040,12 +3163,12 @@ def phase_mesh(dev, tu, ti, tr, su, si, sr, lays, main_rmse, tmp: str,
     check(abs(d["rmse"] - two["rmse"][0]) <= MESH_RMSE_TOL,
           "mesh item_sharded epoch 1 within the tolerance of gram_psum's")
     check(d["trash"], "mesh item_sharded: trash rows exactly 0")
-    launches = {"spd_solve": 0, "spd_solve block": 0, "row_gather": 0,
+    launches = {"spd_solve": 0, "spd_solve tiled": 0, "row_gather": 0,
                 "fused_scores": 0}
     for res in runs.values():
-        for k1, rg, k2, _, _, k1_block in res["per_rank"]:
+        for k1, rg, k2, _, _, k1_tiled in res["per_rank"]:
             launches["spd_solve"] += int(k1)
-            launches["spd_solve block"] += int(k1_block)
+            launches["spd_solve tiled"] += int(k1_tiled)
             launches["row_gather"] += int(rg)
             launches["fused_scores"] += int(k2)
     return {"launches": launches, "runs": runs, "paths": paths, "ref": ref}
@@ -3229,7 +3352,7 @@ def ooc_mesh_rank(mesh, wire, epochs: int, ials: bool = False,
             out["ials"]["factor_diff"] = diffs(g, "ref_iU", "ref_iV")
     per = torch.tensor(
         [ln["spd_solve"], ln["fused_gram"], ln["row_gather"],
-         ln["spd_solve block"], peak, float(zero), float(same), pinned_bytes,
+         ln["spd_solve tiled"], peak, float(zero), float(same), pinned_bytes,
          staged, min(out["bytes"]), max(out["bytes"]), iln["spd_solve"],
          iln["row_gather"]], dtype=torch.float64, device=dev)
     out["per_rank"] = [x.tolist() for x in mesh.all_gather(per)]
@@ -3342,11 +3465,11 @@ def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
             f"(idle {1 - dev_ms / 1e3 / wall:.3f}); streamed s/epoch "
             f"{[round(x, 4) for x in res['streamed_s']]}; on {smi}")
         for r, row in enumerate(res["per_rank"]):
-            (k1, fg, rg, k1b, peak, zero, same, pinned, staged, bmin,
+            (k1, fg, rg, k1t, peak, zero, same, pinned, staged, bmin,
              bmax, ik1, irg) = row
             log(f"{what} rank {r}: K1 {int(k1)}, fused_gram {int(fg)}, "
-                f"row_gather {int(rg)} launches (K1 block body "
-                f"{int(k1b)}); peak device memory {int(peak):,} bytes above "
+                f"row_gather {int(rg)} launches (K1 tiled body "
+                f"{int(k1t)}); peak device memory {int(peak):,} bytes above "
                 f"the rank's start; pinned wire {int(pinned):,} bytes; the "
                 f"streamed pair staged {int(staged):,} bytes; trash and "
                 f"cold rows 0: {bool(zero)}; streamed = pinned: "
@@ -3379,12 +3502,12 @@ def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
               f"{MESH_FACTOR_TOL} of the resident blocked iALS epoch's")
     cli_s = phase_mesh_cli(cli, main_rmse, tmp, smi,
                            ooc_pinned=runs["D=2 gloo"]["per_rank"][0][7])
-    launches = {"spd_solve": 0, "spd_solve block": 0, "row_gather": 0,
+    launches = {"spd_solve": 0, "spd_solve tiled": 0, "row_gather": 0,
                 "fused_gram": 0}
     for res in runs.values():
-        for k1, fg, rg, k1b, *_, ik1, irg in res["per_rank"]:
+        for k1, fg, rg, k1t, *_, ik1, irg in res["per_rank"]:
             launches["spd_solve"] += int(k1 + ik1)
-            launches["spd_solve block"] += int(k1b)
+            launches["spd_solve tiled"] += int(k1t)
             launches["fused_gram"] += int(fg)
             launches["row_gather"] += int(rg + irg)
     log(f"ooc mesh: kernel launches over the 4-epoch runs and the iALS "
@@ -3616,8 +3739,11 @@ def run(dev):
     del rec
     sync()
 
-    # ---- rank 192 through train(), fold-in at 192 and 256 ----------------
-    wide = phase_rank192(dev, tu, ti, tr, su, si, sr, smi)
+    # ---- ranks 128 and 192 through train(), fold-in at 192 and 256 -------
+    with tempfile.TemporaryDirectory() as tmp:
+        r128 = phase_rank128(dev, tu, ti, tr, su, si, sr, tmp, smi)
+        sync()
+        wide = phase_rank192(dev, tu, ti, tr, su, si, sr, tmp, smi)
     sync()
 
     # ---- the command line, in process, at full width, then serving -------
@@ -3686,6 +3812,20 @@ def run(dev):
     log(f"gather probes kernel launches: {probe_launches}")
     check(probe_launches["take_along_rows"] > 0,
           "take_along_rows launched on the probes")
+
+    # every rank-64 path runs K1's warp body only
+    for what, ln in (("main path", launches), ("blocked", blocked_launches),
+                     ("fold-in", fold_launches), ("add_ratings", online["add"]),
+                     ("recommend_cold", online["cold"]),
+                     ("train --publish-shm", serve["train"]),
+                     ("serve cold:", serve["cold"]), ("ooc", ooc["launches"]),
+                     ("mesh", mesh["launches"]),
+                     ("ooc mesh", ooc_mesh["launches"])):
+        check(ln["spd_solve tiled"] == 0, f"{what}: K1's tiled body never "
+              f"launched at rank 64")
+    log(f"K1's tiled body: 0 launches on every rank-64 path; "
+        f"{r128['launches']['spd_solve tiled']} in the rank-128 train(), "
+        f"{wide['k1_n192']} at n = 192, {wide['k1_n256']} at n = 256")
 
     row, take = gather["row_gather"], gather["take_along_rows"]
     kernels = [
@@ -3756,23 +3896,19 @@ def run(dev):
          "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
          "bound_by": gram["bound_by"], "library_ms": None},
     ] + [
-        # K1's block body (64 < n <= 128), with its launches on the paths
-        # the spd_solve row counts
-        {"name": "K1 n128", "route": "cuda",
-         "source": "ycnr_tpu_torch/csrc/spd_solve.cu",
-         "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
-         "launches": sum(ln["spd_solve block"] for ln in (
-             launches, serve["train"], serve["cold"], ooc["launches"],
-             mesh["launches"], ooc_mesh["launches"])),
-         **k1["n128"]},
-    ] + [
-        # K1's packed-triangle body, with the launches of the rank-192 path
-        # (train() and fold-in) and of fold-in at rank 256
+        # K1's tiled body, with the launches of the rank-128 train() at n
+        # 128, of the rank-192 path (train() and fold-in) at 192 and of
+        # fold-in at rank 256
         {"name": f"K1 n{n}", "route": "cuda",
          "source": "ycnr_tpu_torch/csrc/spd_solve.cu",
          "replaces": "ycnr_tpu/ops/pallas_solve.py:355",
-         "launches": wide[f"k1_n{n}"], **k1_wide[n]}
-        for n in (192, 256)
+         "launches": n_launch, "max_abs_err": k1_wide[n]["max_abs_err"],
+         "ms": k1_wide[n]["ms"], "plain_ms": k1_wide[n]["plain_ms"],
+         "bound_ms": k1_wide[n]["bound_ms"],
+         "bound_by": k1_wide[n]["bound_by"],
+         "library_ms": k1_wide[n]["library_ms"]}
+        for n, n_launch in ((128, r128["launches"]["spd_solve tiled"]),
+                            (192, wide["k1_n192"]), (256, wide["k1_n256"]))
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

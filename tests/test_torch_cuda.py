@@ -85,10 +85,10 @@ def _guarded_spd(B, n, seed, dev):
 
 
 @pytest.mark.parametrize("B", [1, 257, 2000])
-@pytest.mark.parametrize("n", [129, 192, 256])
+@pytest.mark.parametrize("n", [65, 96, 128, 129, 192, 256])
 def test_k1_wide_within_cholesky_forward_error(dev, n, B):
-    """The packed-triangle body (n > 128) against a float64 solve, within
-    cond(A) n 2^-24 per system; padding systems exactly 0."""
+    """The tiled body (n > 64) against a float64 solve, within cond(A) n
+    2^-24 per system; padding systems exactly 0."""
     A, b = _guarded_spd(B + 3, n, n + B, dev)
     before = sp.launches
     x = sp.spd_solve(A, b)
@@ -102,6 +102,55 @@ def test_k1_wide_within_cholesky_forward_error(dev, n, B):
     bound = w[:, -1] / w[:, 0] * n * 2.0 ** -24
     assert bool((rel <= bound).all()), (rel.max().item(), bound.min().item())
     assert torch.all(x[:3] == 0)
+
+
+@pytest.mark.parametrize("n", [65, 96, 127, 128, 129, 160, 192, 250, 256])
+def test_k1_tiled_matches_its_mirror(dev, n):
+    """The tiled body against its plain-torch mirror
+    (tests/k1_tiled_mirror.py) on the same well-conditioned
+    systems: the same operations in the same order, so within 1e-5
+    relative (the kernel fuses each multiply-add, the mirror rounds twice);
+    padding systems exactly 0 in both."""
+    from k1_tiled_mirror import tiled_solve_mirror
+
+    A, b = _spd(35, n, 3 * n, dev)
+    x = sp.spd_solve(A, b)
+    torch.cuda.synchronize()
+    xm = tiled_solve_mirror(A.cpu(), b.cpu())
+    rel = ((x.cpu() - xm).abs().amax(1)
+           / xm.abs().amax(1).clamp_min(1e-30))[3:]
+    assert rel.max().item() <= 1e-5
+    assert torch.all(x[:3] == 0) and torch.all(xm[:3] == 0)
+
+
+@pytest.mark.parametrize("n", [65, 127, 128, 250])
+def test_k1_tiled_unaligned_a_takes_the_4_byte_copies(dev, n):
+    """A whose base is 4 bytes past a 16-byte boundary (and, at n 65, 127
+    and 250, rows that are not whole 16-byte chunks) is copied 4 bytes at
+    a time: the same x as the aligned copy, bit for bit."""
+    A, b = _spd(40, n, n, dev)
+    buf = torch.empty(A.numel() + 1, device=dev)
+    Au = buf[1:].view_as(A)
+    Au.copy_(A)
+    assert Au.is_contiguous() and Au.data_ptr() % 16 == 4
+    x = sp.spd_solve(A, b)
+    xu = sp.spd_solve(Au, b)
+    torch.cuda.synchronize()
+    assert torch.equal(x, xu)
+    assert torch.all(xu[:3] == 0)
+
+
+def test_k1_body_launches_count_each_body(dev):
+    """body_launches counts a launch under the body that ran it: "warp"
+    to n = 64, "tiled" above, and launches sums them."""
+    before = dict(sp.body_launches), sp.launches
+    for n, B in ((64, 4), (65, 4), (128, 300), (256, 2)):
+        A, b = _spd(B, n, n, dev)
+        sp.spd_solve(A, b)
+    torch.cuda.synchronize()
+    assert sp.body_launches["warp"] == before[0]["warp"] + 1
+    assert sp.body_launches["tiled"] == before[0]["tiled"] + 3
+    assert sp.launches == before[1] + 4
 
 
 def _k2_inputs(u_b, k, n_seg, seed, dev):
@@ -509,7 +558,7 @@ def test_serving_asked_for_k2_runs_k2_or_raises(dev):
 
 def test_rank192_bucketed_epoch_takes_the_einsum_route(dev):
     """Above fused_gram's MAX_W, bf16 ALS-WR on the card runs row gather ->
-    einsum -> K1 (the packed body at n = 192), never fused_gram; the epoch
+    einsum -> K1 (the tiled body at n = 192), never fused_gram; the epoch
     agrees with the same epoch on the CPU and keeps the trash rows 0."""
     from ycnr_tpu_torch.models import bucketed_phase as bp
     from ycnr_tpu_torch.models.base import init_state

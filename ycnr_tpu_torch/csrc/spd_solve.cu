@@ -52,46 +52,77 @@
 // (reciprocal, row j + 1, store, load: ~230 cycles) with two warps a
 // scheduler to hide it.
 //
-// 64 < n <= 128, spd_solve_block_kernel: one block of 128 threads per
-// system with A in padded shared memory and a barrier per step (Cholesky
-// with rsqrt pivots). The main path (rank 64) does not reach it.
-//
-// 128 < n <= 256, spd_solve_packed_kernel: one block of 256 threads per
-// system. A full n x n f32 square is 256 KB at n = 256, above the 227 KB a
-// block may use, so the block keeps only the lower triangle, packed column
-// by column (packed_index): n (n + 1) / 2 floats, 129 KB at n = 256 and
-// 74 KB at n = 192. Column c of the triangle is row c of A from the
-// diagonal on (A is symmetric), one contiguous run in both places, so A
-// arrives by 4-byte cp.async without a transpose. The factorization is a
-// right-looking Cholesky in panels of 8 columns. A panel is factored
-// left-looking, thread t holding row t of it in registers: column j needs
-// the pivot, row j's entries of the panel's earlier columns and one block
-// barrier. Then the trailing triangle loses the panel's rank-8 product in
-// blocks of 32 rows: a lane keeps its row's 8 values in registers, and the
-// 8 values of a column (a row of the panel copy, 32 bytes) reach every lane
-// at once, so an element costs one shared load and one store for 8 FMAs,
-// and a panel one barrier. Then the forward and back substitutions, thread
-// t holding row t, one barrier a step. A padding system I x = 0 solves to
-// exactly 0.
-//   What holds it: barriers and latency, not device memory: n + n / 8
-// barriers to factor and 2n to substitute, one block an SM at n = 256 and
-// two at n = 192. Timed on the card (H100 80GB HBM3, 700 W, B 20,000):
-// 11.7 ms at n = 192 and 33.4 ms at n = 256, against 26.4 and 76.7 ms for
-// a first body that updated the trailing triangle one column at a time
-// (two shared loads and a store an FMA, 2n barriers).
+// 64 < n <= 256, spd_solve_tiled_kernel: one block a system. It replaces
+// both of the TPU kernel's wide variants (pallas_solve.py:355 dispatches n
+// <= 128 to static_hbm, larger n to panel).
+//   What bounds it: operations. A is symmetric (the callers symmetrize
+// it), so the least a solve reads is its lower triangle, n (n + 1) / 2
+// floats, against n^3 / 3 + 2 n^2 flops: 21 flops a byte at n = 128 and
+// 43 at n = 256, above the 20 at which the f32 pipes, not the memory,
+// are the limit. At B = 20,000 that is 0.218 / 0.726 / 1.709 ms at n =
+// 128 / 192 / 256 (bytes: 0.203 / 0.452 / 0.798). The FMAs run on the
+// CUDA cores in f32: TF32 would break the float64 contract the solve is
+// held to, and 3xTF32 loses about 2 bits a product against it.
+//   Storage: the padded matrix (N = NT T, identity on the diagonal past n,
+// zeros elsewhere; b padded with 0, so the padding solves to exactly 0)
+// as its lower T x T tiles only, tile (i, j), i >= j, at i (i + 1) / 2 + j,
+// each contiguous with rows kTileLd = T + 4 floats apart, so that the 16-
+// byte rows of 8 lanes fall in 8 different bank quads. With b, z and x,
+// 1 / L[j][j] and three pivot slots, T = 32 takes 48 KB a block at n =
+// 128 (4 blocks an SM), 99 KB at 192 (2), 169 KB at 256 (1).
+//   Loading: each tile comes straight from A's rows by 16-byte cp.async
+// (4-byte copies where n % 4 or A's base forbids 16), only the lower
+// tiles, n (n + T) / 2 floats; the warp that first works on a tile copies
+// it, in three groups (the first diagonal tile, the first panel, the
+// first trailing update), and waits only for its own before using it, so
+// the later tiles arrive while the first diagonal tile is factored.
+//   Factorization: right-looking, a tile column a step. (a) T lanes of
+// warp 0 factor the diagonal tile in registers, a row a lane, in the warp
+// body's LDL^T scheme (the pivot column handed on through three shared
+// slots, one __syncwarp a column, no block barrier, MUFU reciprocals),
+// carrying b's tile as the forward substitution, and write L_kk^T into
+// the tile's upper half, 1 / L[j][j] and z_k. (b) A row a lane, the tiles
+// below it become L_ik = A_ik L_kk^-T (a forward substitution with L_kk
+// from broadcast 16-byte loads), stored transposed in place, and b's tile
+// i loses L_ik z_k; the next free lane group solves the identity the same
+// way, L_kk^-1 into the tile's lower half. (c) Warps 1 .. NT - 1 take
+// whole tiles of the trailing update A_ij -= L_ik L_jk^T, a lane a 4 x 8
+// block in registers fed by three 16-byte loads for 32 FMAs (an update a
+// column at a time takes two loads and a store an FMA). Warp 0 solves panel tile (k+1,
+// k) in (b), which is all that the next diagonal tile needs, so it
+// arrives on a named barrier and at once updates and factors tile (k+1,
+// k+1) while the others finish their panels and update: the chain of
+// diagonal factorizations is the block's critical path, and at n = 256 no
+// other block shares the SM to hide it. One block barrier and one named
+// barrier a step.
+//   Back substitution by tiles: the lanes of tile slot j hold y_j; x_i =
+// L_ii^-T y_i is one product with the stored inverse, then the tiles
+// above fold x_i in: one block barrier a tile. 3 NT barriers a system in
+// all: 24 at n = 256, where a barrier a column and a substitution row
+// would take ~800.
+//   NT warps a block (8 at n = 256): a tile slot a warp in (b) and in the
+// back substitution.
+//   Timed on the card (NVIDIA H100 80GB HBM3, 700 W; ycnr_tpu_torch/
+// tools/bench_solve_score.py, B = 20,000, one call): T = 32 takes 0.90 /
+// 1.44 / 3.56 / 8.55 ms at n = 96 / 128 / 192 / 256; a build of this body
+// at T = 16 (a tile a half warp, a 2 x 4 block a lane; not kept) took
+// 0.68 / 1.32 / 4.57 / 14.75: 8-24% faster up to n = 128 and 28-72%
+// slower above (twice the tile columns, so twice the chain of barriers
+// and panels), so T = 32 at every n. The thread count follows from the
+// slots (NT warps) and was not timed against another. What holds it (a
+// build with clock64() counters around each phase, not kept; n = 256, one
+// block an SM): 117k cycles a system, of which warp 0's chain takes 95k
+// (the 8 diagonal factorizations 43k, its 8 panel tiles 29k, 7
+// diagonal-tile updates 23k) while the other warps wait 14k at barriers;
+// at n = 128 four blocks share an SM, each 104k.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // spd_solve_warp_kernel
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlockMaxN = 128;  // spd_solve_block_kernel: a thread a row
-constexpr int kPackedThreads = 256;
-constexpr int kPackedWarps = kPackedThreads / 32;
-constexpr int kMaxN = kPackedThreads;  // spd_solve_packed_kernel: the same
-constexpr int kPanel = 8;  // spd_solve_packed_kernel: columns a panel
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -289,218 +320,354 @@ spd_solve_warp_kernel(const float* __restrict__ A,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-spd_solve_block_kernel(const float* __restrict__ A,
+// ---------------------------------------------------------------------------
+// spd_solve_tiled_kernel (64 < n <= 256): the note at the top.
+
+constexpr int kTile = 32;  // T: tiles are T x T, lane q holds tile row q
+constexpr int kTileLd = kTile + 4;  // floats from a tile row to the next
+constexpr int kMaxN = 256;
+
+template <int NT>
+struct TiledCfg {
+  static constexpr int kN = NT * kTile;  // the padded size
+  static constexpr int kWarps = NT;  // a tile slot a warp
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kTiles = NT * (NT + 1) / 2;  // the lower tiles
+  static constexpr int kTileFloats = kTile * kTileLd;
+  // the tiles; b (then z, then y), 1 / L[j][j] and x; three pivot slots
+  static constexpr int kSmem =
+      4 * (kTiles * kTileFloats + 3 * kN + 3 * kTile);
+  // blocks an SM the shared memory allows (228 KB an SM, 1 KB of it
+  // reserved a block), at most 16 warps an SM: ~93 registers a thread
+  // without spills (ptxas -v)
+  static constexpr int kSmemBlocks = 233472 / (kSmem + 1024);
+  static constexpr int kBlocks =
+      kSmemBlocks < 16 / kWarps ? kSmemBlocks : 16 / kWarps;
+};
+
+// K floats from or to 16-byte aligned shared memory by 16-byte accesses
+template <int K>
+__device__ __forceinline__ void lds(const float* p, float (&v)[K]) {
+  static_assert(K % 4 == 0, "whole 16-byte words");
+#pragma unroll
+  for (int t = 0; t < K; t += 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p + t);
+    v[t] = w.x; v[t + 1] = w.y; v[t + 2] = w.z; v[t + 3] = w.w;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void sts(float* p, const float (&v)[K]) {
+  static_assert(K % 4 == 0, "whole 16-byte words");
+#pragma unroll
+  for (int t = 0; t < K; t += 4) {
+    *reinterpret_cast<float4*>(p + t) =
+        make_float4(v[t], v[t + 1], v[t + 2], v[t + 3]);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A named barrier besides __syncthreads' 0: warp 0 arrives, the others
+// wait.
+constexpr int kPanelsDone = 1;
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int NT>
+__global__ void __launch_bounds__(TiledCfg<NT>::kThreads,
+                                  TiledCfg<NT>::kBlocks)
+spd_solve_tiled_kernel(const float* __restrict__ A,
                        const float* __restrict__ b, float* __restrict__ x,
-                       int n) {
-  extern __shared__ float smem[];
-  const int lda = n + 1;
-  float* S = smem;                 // [n][lda]: working copy, then L^T rows
-  float* col = S + n * lda;        // scaled column j of the factor
-  float* invd = col + n;           // 1 / L[j][j]
-  float* y = invd + n;             // broadcast slot for the substitutions
-
-  const int t = threadIdx.x;
-  const long long sys = blockIdx.x;
-  const float* Ab = A + sys * n * n;
-
-  for (int idx = t; idx < n * n; idx += kThreads) {
-    S[(idx / n) * lda + idx % n] = Ab[idx];
-  }
-  __syncthreads();
-
-  // Trailing-update ownership: thread t owns column c = t % n over the rows
-  // r0, r0 + rstep, ... (threads past rstep * n idle in the update).
-  const int rstep = kThreads / n;
-  const int c = t % n;
-  const int r0 = t / n;
-
-  for (int j = 0; j < n; ++j) {
-    // Row j equals column j (S stays symmetric). Every thread reads the
-    // pivot; only entries right of the diagonal are written, so the pivot
-    // is never overwritten while another warp still reads it.
-    const float inv = rsqrtf(S[j * lda + j]);
-    if (t == j) invd[j] = inv;
-    if (t > j && t < n) {
-      const float v = S[j * lda + t] * inv;
-      col[t] = v;
-      S[j * lda + t] = v;  // L[t][j], stored as row j of L^T
-    }
-    __syncthreads();
-    if (r0 < rstep && c > j) {
-      const float lc = col[c];
-      for (int r = j + 1 + r0; r < n; r += rstep) {
-        S[r * lda + c] -= col[r] * lc;
-      }
-    }
-    __syncthreads();
-  }
-
-  // Forward substitution L y = b, one row per thread, column order.
-  float acc = (t < n) ? b[sys * n + t] : 0.0f;
-  for (int j = 0; j < n; ++j) {
-    if (t == j) {
-      acc *= invd[j];
-      y[j] = acc;
-    }
-    __syncthreads();
-    if (t > j && t < n) acc -= S[j * lda + t] * y[j];
-  }
-  __syncthreads();
-  // Back substitution L^T x = y. L[j][t] for t < j sits at row t, column j.
-  for (int j = n - 1; j >= 0; --j) {
-    if (t == j) {
-      acc *= invd[j];
-      col[j] = acc;
-    }
-    __syncthreads();
-    if (t < j) acc -= S[t * lda + j] * col[j];
-  }
-  if (t < n) x[sys * n + t] = acc;
-}
-
-// Offset of entry (r, c), r >= c, of an n x n lower triangle packed column
-// by column: column c holds rows c .. n - 1 and starts at c (2n - c + 1) / 2.
-__device__ __forceinline__ int packed_index(int r, int c, int n) {
-  return c * (2 * n - c + 1) / 2 + (r - c);
-}
-
-// Shared memory of spd_solve_packed_kernel, in floats: the packed triangle
-// (rounded up to 16 bytes), the panel's columns row by row, 1 / L[j][j].
-__host__ __device__ __forceinline__ int packed_tri_floats(int n) {
-  return (n * (n + 1) / 2 + 3) & ~3;
-}
-
-__global__ void __launch_bounds__(kPackedThreads)
-spd_solve_packed_kernel(const float* __restrict__ A,
-                        const float* __restrict__ b, float* __restrict__ x,
-                        int n) {
+                       int n, int vec) {
+  using C = TiledCfg<NT>;
+  constexpr int T = kTile, LD = kTileLd, W = C::kWarps;
+  constexpr int RM = 4, CM = 8;  // a lane's block of a tile update
   extern __shared__ __align__(16) float smem[];
-  float* S = smem;                        // packed lower triangle of A, then L
-  float* Lp = smem + packed_tri_floats(n);  // [n][kPanel]: L[r][j0 + q]
-  float* invd = Lp + n * kPanel;          // 1 / L[j][j]
-  float* y = Lp;                          // the substitutions' slots, after
-
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
+  float* const bs = smem + C::kTiles * C::kTileFloats;  // b -> z -> y
+  float* const invl = bs + C::kN;                       // 1 / L[j][j]
+  float* const xs = invl + C::kN;                       // x
+  float* const slots = xs + C::kN;  // (a)'s pivot columns, three in turn
+  const int lane = threadIdx.x & 31;
+  const int q = lane;                 // the tile row this lane holds
+  const int warp = threadIdx.x >> 5;  // its tile slot
   const long long sys = blockIdx.x;
-  const float* Ab = A + sys * n * n;
+  const float* As = A + sys * n * n;
 
-  for (int c = 0; c < n; ++c) {
-    const int len = n - c;
-    float* dst = S + packed_index(c, c, n);
-    const float* src = Ab + c * n + c;
-    for (int i = t; i < len; i += kPackedThreads) cp_async4(dst + i, src + i);
-  }
-  cp_async_commit_wait_all();
-  __syncthreads();
+  auto tile = [&](int i, int j) {
+    return smem + (i * (i + 1) / 2 + j) * C::kTileFloats;
+  };
 
-  for (int j0 = 0; j0 < n; j0 += kPanel) {
-    const int pw = n - j0 < kPanel ? n - j0 : kPanel;
-    // The panel, columns j0 .. j0 + pw - 1, left-looking: thread t holds
-    // row t of it in registers; column j needs L[j][j0 .. j - 1] (Lp, from
-    // the earlier columns) and one barrier.
-    float lt[kPanel];
-#pragma unroll
-    for (int q = 0; q < kPanel; ++q) {
-      lt[q] = 0.0f;
-      if (q < pw) {  // the same for every thread
-        const int j = j0 + q;
-        const float* lj = Lp + j * kPanel;
-        float d = S[packed_index(j, j, n)];
-#pragma unroll
-        for (int p = 0; p < q; ++p) d = fmaf(-lj[p], lj[p], d);
-        const float inv = rsqrtf(d);
-        if (t == j) invd[j] = inv;
-        if (t > j && t < n) {
-          float v = S[packed_index(t, j, n)];
-#pragma unroll
-          for (int p = 0; p < q; ++p) v = fmaf(-lt[p], lj[p], v);
-          v *= inv;
-          lt[q] = v;
-          S[packed_index(t, j, n)] = v;  // L[t][j]
-          Lp[t * kPanel + q] = v;
-        }
-        __syncthreads();
-      }
-    }
-    // The trailing triangle minus the panel's rank-8 product, in blocks of
-    // 32 rows: lane l holds row r0 + l's eight L values in registers, warp
-    // w takes the columns c0 + w, c0 + w + 8, ... (two at a time), whose
-    // eight values every lane reads at once. (After the last, narrower
-    // panel nothing is left to update.)
-    const int c0 = j0 + kPanel;
-    if (pw == kPanel && c0 < n) {
-      for (int r0 = c0; r0 < n; r0 += 32) {
-        const int r = r0 + lane;
-        float lr[kPanel];
-        if (r < n) {
-          const float* lp = Lp + r * kPanel;
-          const float4 u = *reinterpret_cast<const float4*>(lp);
-          const float4 v = *reinterpret_cast<const float4*>(lp + 4);
-          lr[0] = u.x; lr[1] = u.y; lr[2] = u.z; lr[3] = u.w;
-          lr[4] = v.x; lr[5] = v.y; lr[6] = v.z; lr[7] = v.w;
+  // Tile (i, j) of the padded A by one warp: cp.async from A's rows,
+  // identity past n.
+  auto load_tile = [&](int i, int j) {
+    float* dst = tile(i, j);
+    if (vec) {
+      constexpr int CH = T / 4;  // 16-byte chunks a tile row
+      for (int e = lane; e < T * CH; e += 32) {
+        const int r = e / CH, c = 4 * (e % CH);
+        const int gr = i * T + r, gc = j * T + c;
+        float* d = dst + r * LD + c;
+        if (gr < n && gc < n) {
+          cp_async16(d, As + static_cast<long long>(gr) * n + gc);
         } else {
 #pragma unroll
-          for (int p = 0; p < kPanel; ++p) lr[p] = 0.0f;
+          for (int v = 0; v < 4; ++v) d[v] = gr == gc + v ? 1.0f : 0.0f;
         }
-        const int cend = r0 + 32 < n ? r0 + 32 : n;  // columns c <= r
-        for (int c = c0 + warp; c < cend; c += 2 * kPackedWarps) {
-          const int c2 = c + kPackedWarps;
-          const int cc[2] = {c, c2 < cend ? c2 : c};
-          float lc[2][kPanel], old[2];
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            const float4 u =
-                *reinterpret_cast<const float4*>(Lp + cc[k] * kPanel);
-            const float4 v =
-                *reinterpret_cast<const float4*>(Lp + cc[k] * kPanel + 4);
-            lc[k][0] = u.x; lc[k][1] = u.y; lc[k][2] = u.z; lc[k][3] = u.w;
-            lc[k][4] = v.x; lc[k][5] = v.y; lc[k][6] = v.z; lc[k][7] = v.w;
-            old[k] = (r < n && r >= cc[k]) ? S[packed_index(r, cc[k], n)]
-                                           : 0.0f;
-          }
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            if (k == 1 && c2 >= cend) break;
-            float acc = lr[0] * lc[k][0];
-#pragma unroll
-            for (int p = 1; p < kPanel; ++p) {
-              acc = fmaf(lr[p], lc[k][p], acc);
-            }
-            if (r < n && r >= cc[k]) {
-              S[packed_index(r, cc[k], n)] = old[k] - acc;
-            }
-          }
+      }
+    } else {
+      for (int e = lane; e < T * T; e += 32) {
+        const int r = e / T, c = e % T;
+        const int gr = i * T + r, gc = j * T + c;
+        float* d = dst + r * LD + c;
+        if (gr < n && gc < n) {
+          cp_async4(d, As + static_cast<long long>(gr) * n + gc);
+        } else {
+          *d = gr == gc ? 1.0f : 0.0f;
         }
       }
     }
-    __syncthreads();
+  };
+
+  // The warp's tiles of step k's trailing update: round robin over warps
+  // 1 .. W - 1. Tile (k+1, k+1) is warp 0's, which then factors it: the
+  // chain of diagonal factorizations is the block's critical path.
+  auto for_my_tiles = [&](int k, auto&& f) {
+    int u = 0;
+    for (int j = k + 1; j < NT; ++j) {
+      for (int i = j; i < NT; ++i) {
+        if (i == k + 1 && j == k + 1) continue;
+        if (1 + u++ % (W - 1) == warp) f(i, j);
+      }
+    }
+  };
+
+  // (c) A_ij -= L_ik L_jk^T by one warp: a lane's RM x CM block in
+  // registers; L_ik and L_jk are stored transposed, so a step p reads RM
+  // and CM consecutive floats.
+  auto update_tile = [&](int i, int j, int k) {
+    float* ct = tile(i, j);
+    const float* pi = tile(i, k);
+    const float* pj = tile(j, k);
+    const int r0 = (lane >> 2) * RM, c0 = (lane & 3) * CM;
+    float acc[RM][CM];
+#pragma unroll
+    for (int u = 0; u < RM; ++u) lds(ct + (r0 + u) * LD + c0, acc[u]);
+#pragma unroll
+    for (int p = 0; p < T; ++p) {
+      float lr[RM], lc[CM];
+      lds(pi + p * LD + r0, lr);
+      lds(pj + p * LD + c0, lc);
+#pragma unroll
+      for (int u = 0; u < RM; ++u) {
+#pragma unroll
+        for (int v = 0; v < CM; ++v) {
+          acc[u][v] = fmaf(-lr[u], lc[v], acc[u][v]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RM; ++u) sts(ct + (r0 + u) * LD + c0, acc[u]);
+  };
+
+  // (a) Diagonal tile kk by warp 0, lane q holding row q of its lower
+  // half: the warp body's LDL^T elimination by rows (column j's entries
+  // a[q][j] go round through a shared slot; each lane updates its row
+  // right of j), column j + 1 handed on before the rest of step j. b's
+  // tile rides along: z_j = b_j / L[j][j]. Writes L_kk^T into the tile's
+  // strict upper half, 1 / L[j][j] and z.
+  auto factor = [&](int kk) {
+    float* dt = tile(kk, kk);
+    float a[T];
+    lds(dt + q * LD, a);
+    float bq = bs[kk * T + q];
+    slots[q] = a[0];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      const float* cj = slots + (j % 3) * T;
+      float* cn = slots + ((j + 1) % 3) * T;
+      const float d = cj[j];
+      const float m = a[j] * __fdividef(1.0f, d);  // L[q][j] / L[j][j]
+      const float bj = __shfl_sync(kFull, bq, j);
+      if (j + 1 < T) {
+        if (q > j) a[j + 1] = fmaf(-cj[j + 1], m, a[j + 1]);
+        cn[q] = a[j + 1];
+        __syncwarp();
+      }
+      // the rest of the row, c > j + 1: entries past the diagonal (c > q)
+      // and rows already done (q <= j) take updates that nothing reads
+#pragma unroll
+      for (int c4 = (j + 2) & ~3; c4 < T; c4 += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(cj + c4);
+        const float l[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          if (c4 + t >= j + 2) a[c4 + t] = fmaf(-l[t], m, a[c4 + t]);
+        }
+      }
+      if (q > j) bq = fmaf(-bj, m, bq);
+      const float s = rsqrtf(d);  // 1 / L[j][j]
+      if (q > j) dt[j * LD + q] = a[j] * s;  // L[q][j]
+      if (q == j) {
+        invl[kk * T + j] = s;
+        bs[kk * T + j] = bj * s;
+      }
+    }
+  };
+
+  // (b) The tiles below diagonal tile k, a row a lane: x L_kk^T = a by
+  // forward substitution, stored transposed in place, and b's tile i
+  // loses L_ik z_k. The warp after the last tile's solves the identity:
+  // L_kk^-1, kept in the diagonal tile's lower half.
+  auto panel = [&](int k) {
+    const int last = NT - 1 - k;  // the identity's slot
+    if (warp > last) return;
+    const bool ident = warp == last;
+    const int i = k + 1 + warp;
+    float* pt = ident ? tile(k, k) : tile(i, k);
+    const float* lt = tile(k, k);
+    float a[T];
+    if (!ident) {
+      lds(pt + q * LD, a);
+    } else {
+#pragma unroll
+      for (int c = 0; c < T; ++c) a[c] = c == q ? 1.0f : 0.0f;
+    }
+    __syncwarp();  // every row read before any is stored transposed
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      a[j] *= invl[k * T + j];
+#pragma unroll
+      for (int c4 = (j + 1) & ~3; c4 < T; c4 += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(lt + j * LD + c4);
+        const float l[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int c = c4 + t;
+          if (c > j) a[c] = fmaf(-a[j], l[t], a[c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < T; ++p) {
+      if (!ident || p >= q) pt[p * LD + q] = a[p];
+    }
+    if (!ident) {
+      float z[T];
+      lds(bs + k * T, z);
+      float acc = bs[i * T + q];
+#pragma unroll
+      for (int p = 0; p < T; ++p) acc = fmaf(-a[p], z[p], acc);
+      bs[i * T + q] = acc;
+    }
+  };
+
+  // Copies in three groups: the first diagonal tile and b (warp 0), this
+  // warp's tiles of the first panel, its tiles of the first update.
+  if (warp == 0) {
+    load_tile(0, 0);
+    for (int c = lane; c < C::kN; c += 32) {
+      bs[c] = c < n ? b[sys * n + c] : 0.0f;
+    }
+  }
+  cp_async_commit();
+  if (warp < NT - 1) load_tile(warp + 1, 0);
+  cp_async_commit();
+  if (warp == 0) load_tile(1, 1);
+  for_my_tiles(0, load_tile);
+  cp_async_commit();
+
+  if (warp == 0) {
+    cp_async_wait<2>();
+    __syncwarp();
+    factor(0);
+  }
+  for (int k = 0; k < NT; ++k) {
+    __syncthreads();  // L_kk^T, 1 / L[j][j], z_k; step k - 1's updates
+    if (k == 0) {
+      cp_async_wait<1>();
+      __syncwarp();
+    }
+    panel(k);
+    if (k + 1 == NT) {
+      __syncthreads();  // the last L_kk^-1
+      break;
+    }
+    if (k == 0) {
+      cp_async_wait<0>();
+      __syncwarp();
+    }
+    if (warp == 0) {
+      // The next diagonal tile needs only this warp's panel tile (k+1, k):
+      // it is updated and factored while the others finish their panels.
+      bar_arrive(kPanelsDone, C::kThreads);
+      __syncwarp();  // its panel tile, stored transposed by other lanes
+      update_tile(k + 1, k + 1, k);
+      __syncwarp();
+      factor(k + 1);
+    } else {
+      bar_sync(kPanelsDone, C::kThreads);  // every panel
+      for_my_tiles(k, [&](int i, int j) { update_tile(i, j, k); });
+    }
   }
 
-  // Forward substitution L z = b, thread t holding row t, column order.
-  float acc = t < n ? b[sys * n + t] : 0.0f;
-  for (int j = 0; j < n; ++j) {
-    if (t == j) {
-      acc *= invd[j];
-      y[j] = acc;
+  // Back substitution L^T x = z by tiles: the lanes of warp j hold y_j;
+  // x_i = L_ii^-T y_i, then every tile j < i loses L_ij^T x_i.
+  float y = bs[warp * T + q];
+  for (int i = NT - 1; i >= 0; --i) {
+    if (warp == i) {
+      bs[i * T + q] = y;
+      __syncwarp();
+      const float* inv = tile(i, i);  // L_ii^-1 [p][q], p >= q
+      float yv[T];
+      lds(bs + i * T, yv);
+      float xq = 0.0f;
+#pragma unroll
+      for (int p = 0; p < T; ++p) {
+        if (p >= q) xq = fmaf(inv[p * LD + q], yv[p], xq);
+      }
+      xs[i * T + q] = xq;
+      if (i * T + q < n) x[sys * n + i * T + q] = xq;
     }
-    __syncthreads();
-    if (t > j && t < n) acc = fmaf(-S[packed_index(t, j, n)], y[j], acc);
-  }
-  __syncthreads();
-  // Back substitution L^T x = z: x_j folds into every row t < j through
-  // L[j][t].
-  for (int j = n - 1; j >= 0; --j) {
-    if (t == j) {
-      acc *= invd[j];
-      y[j] = acc;
+    __syncthreads();  // x_i
+    if (warp < i) {
+      float l[T], xv[T];
+      lds(tile(i, warp) + q * LD, l);  // L_ij[r][q] for r = 0 .. T - 1
+      lds(xs + i * T, xv);
+#pragma unroll
+      for (int r = 0; r < T; ++r) y = fmaf(-l[r], xv[r], y);
     }
-    __syncthreads();
-    if (t < j) acc = fmaf(-S[packed_index(j, t, n)], y[j], acc);
   }
-  if (t < n) x[sys * n + t] = acc;
+}
+
+template <int NT>
+int launch_tiled(const float* A, const float* b, float* x, int batch, int n,
+                 cudaStream_t stream) {
+  using C = TiledCfg<NT>;
+  auto kern = spd_solve_tiled_kernel<NT>;
+  if (C::kSmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (e != cudaSuccess) return e;
+  }
+  const int vec = n % 4 == 0 &&
+                  reinterpret_cast<unsigned long long>(A) % 16 == 0;
+  kern<<<batch, C::kThreads, C::kSmem, stream>>>(A, b, x, n, vec);
+  return cudaGetLastError();
 }
 
 template <int N>
@@ -527,6 +694,18 @@ int launch_warp(const float* A, const float* b, float* x, int batch, int n,
   return cudaGetLastError();
 }
 
+// launch_tiled<NT> for the nt = ceil(n / T) that n needs
+template <int NT>
+int dispatch_tiled(int nt, const float* A, const float* b, float* x,
+                   int batch, int n, cudaStream_t stream) {
+  if constexpr (NT * kTile > kMaxN) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (nt == NT) return launch_tiled<NT>(A, b, x, batch, n, stream);
+    return dispatch_tiled<NT + 1>(nt, A, b, x, batch, n, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" int ycnr_spd_solve(const float* A, const float* b, float* x,
@@ -535,25 +714,6 @@ extern "C" int ycnr_spd_solve(const float* A, const float* b, float* x,
   if (n <= 16) return launch_warp<16>(A, b, x, batch, n, stream);
   if (n <= 32) return launch_warp<32>(A, b, x, batch, n, stream);
   if (n <= 64) return launch_warp<64>(A, b, x, batch, n, stream);
-  if (n <= kBlockMaxN) {
-    const size_t smem =
-        sizeof(float) * (size_t(n) * (n + 1) + 3 * size_t(n));
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          spd_solve_block_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-      if (e != cudaSuccess) return e;
-    }
-    spd_solve_block_kernel<<<batch, kThreads, smem, stream>>>(A, b, x, n);
-    return cudaGetLastError();
-  }
-  const size_t smem =
-      sizeof(float) * (size_t(packed_tri_floats(n)) + (kPanel + 1) * n);
-  cudaError_t e = cudaFuncSetAttribute(
-      spd_solve_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (e != cudaSuccess) return e;
-  spd_solve_packed_kernel<<<batch, kPackedThreads, smem, stream>>>(A, b, x,
-                                                                   n);
-  return cudaGetLastError();
+  return dispatch_tiled<3>((n + kTile - 1) / kTile, A, b, x, batch, n,
+                           stream);
 }

@@ -49,7 +49,7 @@ import torch
 
 from ycnr_tpu_torch.ops import _build
 
-MAX_W = 128  # K1's limit, so the kernel covers every rank the solve takes
+MAX_W = 128  # this kernel's own width limit (K1 takes n up to 256)
 
 # The kernel runs one block per entity. A call with fewer entities than
 # this many blocks (three resident per SM of an H100) cuts each long rating

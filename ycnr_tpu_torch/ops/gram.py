@@ -85,7 +85,7 @@ def guarded_batched_solve(A: torch.Tensor, b: torch.Tensor,
     slots solve I x = 0 -> exactly 0. The ridge is added before the
     symmetrization, in the reference's order. On the CPU the solve is the
     plain Cholesky; on CUDA it is K1 (``ops/spd_solve.py``), which raises
-    for what it does not take (float64, n > 128).
+    for what it does not take (float64, n > 256).
     """
     global guarded_solves
     guarded_solves += 1

@@ -7,16 +7,16 @@ to ``spd_solve_reference``; a CUDA float32 tensor with ``n <= 256``
 (``MAX_N``, the TPU kernel's own limit) goes to the hand-written kernel
 ``csrc/spd_solve.cu``; any other CUDA tensor raises.
 
-Which body of the kernel runs follows from n alone: up to n = 64 one warp
-solves a system with the matrix in registers, padded with an identity
-block to 16, 32 or 64 columns (an LDL^T elimination, columns in order,
-the right-hand side carried as one more row, then a back substitution);
-up to n = 128 one block of 128 threads solves a system in shared memory;
-above, one block of 256 threads keeps only the lower triangle, packed
-column by column (``packed_index``), and runs a right-looking Cholesky in
-panels of 8 columns (each panel factored left-looking with rsqrt pivots,
-then the trailing triangle minus its rank-8 product), then the two
-substitutions. All three are held to a
+Which body of the kernel runs follows from n alone (``body``): up to n =
+64 one warp solves a system with the matrix in registers, padded with an
+identity block to 16, 32 or 64 columns (an LDL^T elimination, columns in
+order, the right-hand side carried as one more row, then a back
+substitution); above, one block a system keeps the lower 32 x 32 tiles of
+the matrix (identity padding past n) in shared memory and runs a
+right-looking Cholesky a tile column at a time (the diagonal tile
+factored by one warp in registers with the right-hand side carried, the
+tiles below solved a row a lane, the trailing tiles updated from
+registers), then a back substitution by tiles. Both are held to a
 float64 solve within the forward error of an f32 Cholesky,
 ``cond(A) n 2^-24``; a padding system I x = 0 gives exactly 0.
 
@@ -36,9 +36,9 @@ from ycnr_tpu_torch.ops import _build
 MAX_N = 256
 
 launches = 0  # K1 launches since the last reset (chip_smoke reads it)
-# the same launches by the body that ran them ("warp" n <= 64, "block"
-# n <= 128, "packed" above; ``body``), reset with ``launches``
-body_launches = {"warp": 0, "block": 0, "packed": 0}
+# the same launches by the body that ran them ("warp" n <= 64, "tiled"
+# above; ``body``), reset with ``launches``
+body_launches = {"warp": 0, "tiled": 0}
 
 
 def spd_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -47,17 +47,9 @@ def spd_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(b[..., None], L)[..., 0]
 
 
-def packed_index(r, c, n: int):
-    """Offset of entry (r, c), r >= c, of an n x n lower triangle packed
-    column by column, as the n > 128 body keeps it in shared memory
-    (``csrc/spd_solve.cu:packed_index``): column c holds rows c .. n - 1
-    and starts at c (2n - c + 1) / 2."""
-    return c * (2 * n - c + 1) // 2 + (r - c)
-
-
 def body(n: int) -> str:
     """Which body of K1 solves systems of size n (``csrc/spd_solve.cu``)."""
-    return "warp" if n <= 64 else "block" if n <= 128 else "packed"
+    return "warp" if n <= 64 else "tiled"
 
 
 def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,18 @@
 """Device time of K1 (batched SPD solve) and K2 (fused masked scorer) at
 the main path's shapes, over CUDA graphs (no host launch cost).
 
-K1 at n = 64 with B = 8, 256 and 20,000 systems (the bucketed epoch calls
-it with anything from 8 systems to tens of thousands), and at n = 192 and
-256 (ranks above 128: the packed-triangle body) with the same batches; K2
-at one serving block of 4,096 users x 26,744 items, rank 64, bf16 and f32
-score buffers.
+K1 at n = 64 (the warp body) and n = 96, 128, 192 and 256 (the tiled
+body: rank 128 is the bench's ``--rank 128``, ranks above 128 the einsum
+route) with B = 8, 256 and 20,000 systems (the bucketed epoch calls it with
+anything from 8 systems to tens of thousands); K2 at one serving block of
+4,096 users x 26,744 items, rank 64, bf16 and f32 score buffers.
 Uses only the wrappers' stable signatures, so the same file times another
-checkout of the package when run with that checkout first on
+checkout of the package when run as a script with that checkout first on
 ``PYTHONPATH``: two versions are compared inside one call on one card.
 Prints one JSON line per measurement. Needs a GPU.
 
     python -m ycnr_tpu_torch.tools.bench_solve_score [--reps 3]
+    PYTHONPATH=<other checkout> python ycnr_tpu_torch/tools/bench_solve_score.py
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ycnr_tpu_torch.ops.fused_topn import SEG_LEN, fused_scores_cuda
 from ycnr_tpu_torch.ops.spd_solve import spd_solve_cuda
 from ycnr_tpu_torch.tools.probe_gather import device_name, graph_ms
 
-K1_NS = (64, 192, 256)
+K1_NS = (64, 96, 128, 192, 256)
 K1_BATCHES = (8, 256, 20_000)
 K2_USERS, K2_ITEMS, K2_RANK = 4096, 26_744, 64
 
