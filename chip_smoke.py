@@ -20,8 +20,13 @@ Run from the repository root:  python3 chip_smoke.py
    indices, from the 26,744-row and 480,189-row tables; each timed beside
    its plain version and that one PyTorch call;
 6. the main path as ``bench.py`` runs it: ALS-WR rank 64 on the
-   ML-20M-shaped synthetic set, bucketed layout (8 groups), bf16 gathers
-   through the fused gather -> Gram kernel with the ridge in its epilogue
+   ML-20M-shaped synthetic set (generated once, while the kernels of item
+   2 compile, into the port's bench cache, ``ycnr_tpu_torch/tools/
+   bench.py``, in a directory of the script's own: the split read back
+   bit-equal to ``train_test_split`` of the set, and read from there, with
+   the layouts cached beside it, by every bench and tool run below),
+   bucketed layout (8 groups), bf16 gathers through the fused gather ->
+   Gram kernel with the ridge in its epilogue
    (first held to its bound on the smallest-R and largest-R blocks of both
    layouts), then K1; 4 epochs with held-out RMSE, held to the reference
    trajectory and to PR 2's; epoch 3 profiled by kernel;
@@ -133,6 +138,24 @@ Run from the repository root:  python3 chip_smoke.py
     one iALS epoch (K1 and ``row_gather`` on every rank) against a
     resident blocked iALS epoch; and ``train --ooc --shards 2
     --dist-backend gloo --epochs 2`` from item 17's store.
+22. "bench": ``python -m ycnr_tpu_torch.tools.bench --algo als --topn
+    --groups both`` as a process at the ML-20M width: exactly one stdout
+    line with bench.py's keys and ``vs_baseline`` null; its 8-group RMSE
+    after epochs 1-4 within 1e-6 of item 6's and both runs' within 1e-3 of
+    the reference; K1 and ``fused_gram`` over the epochs, K2 in the top-10
+    passes, no rated item served; then ``run_bench`` in process with
+    ``--layout blocked`` (4 epochs, reference within 1e-3), ``--rank 128``
+    (RMSE falls, K1's tiled body), ``--algo ials``, ``--algo sgd`` batched
+    and stream (RMSE falls), ``--algo bpr`` (2 epochs each);
+23. "tools": in process at the ML-20M width, ``bench_ooc --compare`` with
+    the wire pinned and streamed (factors and held-out RMSE bit-equal to
+    the resident run, within 1e-5 of item 6's epoch 3), ``--probe``
+    (host-to-device GB/s), ``--algo sgd`` on the compact wire (held-out
+    RMSE falls); ``bench_bpr_batch`` at 65,536 and 262,144; ``soak`` at
+    its defaults for 8 s (no error, epochs never back on a connection);
+    ``loadgen`` against item 17's store and checkpoint (its server a
+    process, ``--precompute``: no error); ``quality_calibrated --scale
+    ml20m`` for 2 epochs (hit@10 rises for BPR and iALS); ``free -g``.
 
 Every path runs with the kernels' launch counts set to 0 just before it,
 and each kernel must have launched on the paths that use it; K1's tiled
@@ -145,9 +168,11 @@ name and power limit (``nvidia-smi``), a JSON line of per-kernel results
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3516,12 +3541,314 @@ def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
 
 
 
+# ---- "bench" and "tools": the measuring layer (ycnr_tpu_torch/tools/) ----
+
+# The bench's 8-group run against the main path: the same cached arrays,
+# the same start and the same kernels, so the same trajectory; the bench
+# logs RMSE to 6 decimals (half of 1e-6 of rounding).
+BENCH_TRAJ_TOL = 1e-6
+# An out-of-core run's held-out RMSE after 3 epochs against the main
+# path's epoch 3: the same factors, the RMSE summed over the held-out set
+# without the main path's padding (another reduction shape).
+OOC_MAIN_TOL = 1e-5
+SOAK_S = 8  # the soak's duration (its default is 60)
+TOOL_EPOCHS = 2  # epochs of the in-process runs and tools (one before the
+#                  first timed epoch; RMSE can be seen to fall)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "steady_16g_s"}
+
+
+def main_data():
+    """The main path's arrays, made once: the synthetic set
+    (``synthetic_ratings``, rank 16, noise 0.3, seed 0) and its split
+    (``train_test_split``, 5%, seed 0), written into the bench cache under
+    the bench's own tag (``tools.bench.coo_tag``, ``_cache_path``) and read
+    back through ``tools.bench.cached_coo``, as every bench and tool run of
+    this script reads them; the read-back held to the split bit for bit."""
+    from ycnr_tpu_torch.data.split import train_test_split
+    from ycnr_tpu_torch.data.synthetic import synthetic_ratings
+    from ycnr_tpu_torch.tools import bench as tbench
+
+    nu, ni, nr = MAIN["n_users"], MAIN["n_items"], MAIN["n_ratings"]
+    t0 = time.time()
+    u, i, r = synthetic_ratings(nu, ni, nr, true_rank=16, noise=0.3, seed=0)
+    split = train_test_split(u, i, r, 0.05, 0)
+    (tu, ti, tr), (su, si, sr) = split
+    tbench._save_npz(tbench._cache_path(tbench.coo_tag(nu, ni, nr, 0)), {
+        "tu": tu, "ti": ti, "tr": tr, "su": su, "si": si, "sr": sr})
+    got = tbench.cached_coo(nu, ni, nr, 0)
+    same = all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(got[0] + got[1], split[0] + split[1]))
+    check(same, "the bench cache gives back synthetic_ratings + "
+          "train_test_split")
+    log(f"data: {len(r):,} ratings generated, split and cached in "
+        f"{time.time() - t0:.1f} s; the bench cache's split equals "
+        f"train_test_split of them bit for bit")
+    return (u, i, r), got
+
+
+_EPOCH_LINE = re.compile(r"epoch \d+.*?: ([0-9.]+)s device ([0-9.]+) ms"
+                         r"(?: rmse=([0-9.]+))?")
+_LAUNCH_LINE = re.compile(r"kernel launches (over the epochs|of the top-10 "
+                          r"passes): (\{.*\})")
+_TOPN_LINE = re.compile(r"top-10 (on device|fused scorer).* = ([0-9,]+) "
+                        r"recs/s.*rated items served: (\d+)")
+
+
+def parse_bench_log(err: str) -> list:
+    """The stderr of ``python -m ycnr_tpu_torch.tools.bench`` split into its
+    runs (each starts with its ``device:`` line): the RMSE, wall and
+    device ms of every epoch, the launches over the epochs and of the
+    top-10 passes, recs/s and rated items served of each scorer."""
+    import ast
+
+    runs = []
+    for line in err.splitlines():
+        if line.startswith("device: "):
+            runs.append({"rmse": [], "s": [], "device_ms": [], "recs": {},
+                         "rated": {}})
+        elif runs:
+            run = runs[-1]
+            if m := _EPOCH_LINE.match(line):
+                run["s"].append(float(m[1]))
+                run["device_ms"].append(float(m[2]))
+                if m[3]:
+                    run["rmse"].append(float(m[3]))
+            elif m := _LAUNCH_LINE.match(line):
+                run["epochs" if m[1].startswith("over") else "topn"] = \
+                    ast.literal_eval(m[2])
+            elif m := _TOPN_LINE.match(line):
+                key = "exact" if m[1] == "on device" else "fused"
+                run["recs"][key] = int(m[2].replace(",", ""))
+                run["rated"][key] = int(m[3])
+    return runs
+
+
+def count_launches(total: dict, launches: dict):
+    """Add a run's launches to ``total`` (K1's tiled body apart)."""
+    for k in total:
+        total[k] += launches[k]
+
+
+def phase_bench(dev, main_rmse, smi: str) -> dict:
+    """"bench": ``ycnr_tpu_torch/tools/bench.py`` at the ML-20M width on
+    the cached arrays. Once as a process, as a user runs it (``--algo als
+    --topn --groups both``): exactly one stdout line with bench.py's keys
+    and ``vs_baseline`` null; the 8-group run's RMSE after epochs 1-4
+    within BENCH_TRAJ_TOL of the main path's and both runs' within 1e-3 of
+    the reference; K1 and ``fused_gram`` over the epochs, K2 in the top-10
+    passes, no rated item served by either scorer. Then in process
+    (``run_bench``, TOOL_EPOCHS epochs where the run is not the main
+    path's): ``--layout blocked`` (4 epochs, within 1e-3 of the
+    reference), ``--rank 128`` (RMSE falls, K1's tiled body launches),
+    ``--algo ials``, ``--algo sgd`` batched and ``--sgd-method stream``
+    (RMSE falls), ``--algo bpr``; their launches go to the kernels line."""
+    from ycnr_tpu_torch.config import get_preset
+    from ycnr_tpu_torch.tools import bench as tbench
+
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "ycnr_tpu_torch.tools.bench",
+                          "--algo", "als", "--topn", "--groups", "both"],
+                         capture_output=True, text=True, timeout=900)
+    wall = time.time() - t0
+    check(res.returncode == 0, f"the bench process exits 0 (stderr ends "
+          f"{res.stderr[-3000:]})")
+    lines = res.stdout.strip().splitlines()
+    check(len(lines) == 1, f"the bench process prints exactly one stdout "
+          f"line, not {len(lines)}")
+    out = json.loads(lines[0])
+    log(f"bench process ({wall:.1f} s wall): {lines[0]}")
+    check(set(out) == BENCH_KEYS and out["vs_baseline"] is None
+          and out["unit"] == "s/epoch"
+          and out["metric"] == "ml20m_als_epoch_s_rank64_1gpu",
+          "the bench line has bench.py's keys, vs_baseline null")
+    runs = parse_bench_log(res.stderr)
+    check(len(runs) == 2, "the bench logged its 8-group and 16-group runs")
+    for g, run in zip((8, 16), runs):
+        log(f"bench {g} groups: s/epoch {run['s']}, device ms an epoch "
+            f"(CUDA events) {run['device_ms']}, rmse {run['rmse']}; "
+            f"launches {run.get('epochs')}, top-10 {run.get('topn')}; "
+            f"top-10 exact {run['recs'].get('exact', 0):,} recs/s, fused "
+            f"(K2) {run['recs'].get('fused', 0):,} recs/s; on {smi}")
+        check(len(run["rmse"]) == 4, f"bench {g} groups: 4 epochs")
+        for ep, (got, want) in enumerate(zip(run["rmse"], ANCHOR_RMSE)):
+            check(abs(got - want) <= RMSE_TOL, f"bench {g} groups epoch "
+                  f"{ep + 1} rmse {got} within {RMSE_TOL} of {want}")
+        ep_l, top = run.get("epochs", {}), run.get("topn", {})
+        check(ep_l.get("spd_solve", 0) > 0 and ep_l.get("fused_gram", 0) > 0
+              and ep_l.get("spd_solve tiled", 1) == 0,
+              f"bench {g} groups: K1's warp body and fused_gram launched")
+        check(top.get("fused_scores", 0) > 0 and "fused" in run["recs"],
+              f"bench {g} groups: --topn ran K2 (the fused leg)")
+        check(run["rated"] == {"exact": 0, "fused": 0},
+              f"bench {g} groups: no rated item served")
+    for ep, (got, want) in enumerate(zip(runs[0]["rmse"], main_rmse)):
+        check(abs(got - want) <= BENCH_TRAJ_TOL, f"bench 8 groups epoch "
+              f"{ep + 1} rmse {got} within {BENCH_TRAJ_TOL} of the main "
+              f"path's {want:.7f}")
+    log(f"bench process: 8-group RMSE equal to the main path's within "
+        f"{BENCH_TRAJ_TOL}; 16 groups {out['steady_16g_s']} s/epoch")
+
+    launches = dict.fromkeys(("spd_solve", "spd_solve tiled",
+                              "fused_scores", "row_gather", "fused_gram"), 0)
+    shape = (MAIN["n_users"], MAIN["n_items"], MAIN["n_ratings"])
+    inproc = {}
+
+    def run_in(name, rank, epochs, **kw):
+        sync()
+        reset_launches()
+        rep = {}
+        s = tbench.run_bench(*shape, rank, epochs, 32, bf16=True, groups=8,
+                             device=dev, report=rep, **kw)
+        sync()
+        ln = read_launches()
+        count_launches(launches, ln)
+        rep["all_launches"] = ln
+        inproc[name] = rep
+        log(f"bench in process, {name}: {s:.4f} s/epoch; walls "
+            f"{[round(x, 4) for x in rep['epoch_s']]} s, device ms "
+            f"{[round(x, 3) for x in rep['device_ms']]}, rmse "
+            f"{[None if x is None else round(x, 6) for x in rep['rmse']]}; "
+            f"launches { {k: v for k, v in ln.items() if v} }; on {smi}")
+        return rep
+
+    rep = run_in("--layout blocked", 64, 3, layout="blocked")
+    for ep, (got, want) in enumerate(zip(rep["rmse"], ANCHOR_RMSE)):
+        check(abs(got - want) <= RMSE_TOL, f"bench --layout blocked epoch "
+              f"{ep + 1} rmse {got:.6f} within {RMSE_TOL} of {want}")
+    check(rep["all_launches"]["row_gather"] > 0, "blocked: row_gather ran")
+    rep = run_in("--rank 128", 128, TOOL_EPOCHS - 1)
+    check(rep["rmse"][-1] < rep["rmse"][0], "bench --rank 128: RMSE falls")
+    check(rep["all_launches"]["spd_solve tiled"] > 0
+          and rep["all_launches"]["fused_gram"] > 0,
+          "bench --rank 128: fused_gram and K1's tiled body launched")
+    rep = run_in("--algo ials", get_preset("ml20m-ials").ials.rank,
+                 TOOL_EPOCHS - 1, algo="ials")
+    check(rep["all_launches"]["spd_solve"] > 0
+          and rep["all_launches"]["row_gather"] > 0,
+          "bench --algo ials: row_gather and K1 launched")
+    for method in ("batched", "stream"):
+        rep = run_in(f"--algo sgd --sgd-method {method}", 64,
+                     TOOL_EPOCHS - 1, algo="sgd", sgd_method=method)
+        check(rep["rmse"][-1] < rep["rmse"][0],
+              f"bench --algo sgd ({method}): RMSE falls")
+        check(rep["all_launches"]["row_gather"] > 0,
+              f"bench --algo sgd ({method}): row_gather launched")
+    rep = run_in("--algo bpr", get_preset("ml20m-bpr").bpr.rank,
+                 TOOL_EPOCHS - 1, algo="bpr")
+    check(rep["all_launches"]["row_gather"] > 0,
+          "bench --algo bpr: row_gather launched")
+    log(f"bench phase kernel launches (in process): {launches}")
+    return {"launches": launches, "process": runs, "line": out,
+            "inproc": inproc}
+
+
+def phase_tools(dev, main_rmse, cli: dict, smi: str, tmp: str) -> dict:
+    """"tools": the measuring tools of ``ycnr_tpu_torch/tools/`` in
+    process at the ML-20M width (their JSON lines into this log, their
+    launches into the kernels line): ``bench_ooc --scale ml20m --compare``
+    with ``--residency device`` and ``host`` (factors bit-equal to the
+    resident run's, held-out RMSE equal, and within OOC_MAIN_TOL of the
+    main path's epoch 3), ``--probe`` (host-to-device GB/s), ``--algo sgd``
+    on the compact wire with ``--rmse`` (held-out RMSE falls);
+    ``bench_bpr_batch --batches 65536 262144``; ``soak`` at its defaults
+    for SOAK_S seconds (no error, no epoch going back on a connection);
+    ``loadgen`` against the CLI phase's store and checkpoint, its server a
+    process of its own (no error); ``quality_calibrated --scale ml20m``
+    (hit@10 rises for BPR and iALS). Depth cut to TOOL_EPOCHS epochs."""
+    import io
+
+    from ycnr_tpu_torch.tools import (bench_bpr_batch, bench_ooc, loadgen,
+                                      quality_calibrated, soak)
+
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    log("free -g on this machine:\n" + free)
+    launches = dict.fromkeys(("spd_solve", "spd_solve tiled",
+                              "fused_scores", "row_gather", "fused_gram"), 0)
+    out = {"free": free}
+
+    def tool(name, module, argv):
+        sync()
+        reset_launches()
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            ret = module.main(argv)
+        sync()
+        ln = read_launches()
+        count_launches(launches, ln)
+        log(f"{name}: {time.time() - t0:.1f} s; launches "
+            f"{ {k: v for k, v in ln.items() if v} }; on {smi}")
+        for line in buf.getvalue().splitlines():
+            log(f"{name}: {line}")
+        out[name] = ret
+        return ret, ln
+
+    for residency in ("device", "host"):
+        r, ln = tool(f"bench_ooc --compare --residency {residency}",
+                     bench_ooc, ["--scale", "ml20m", "--compare",
+                                 "--residency", residency])
+        cmp = r["compare"]
+        check(cmp["factors_equal"] is True, f"bench_ooc {residency}: the "
+              f"out-of-core factors equal the resident run's bit for bit")
+        check(cmp["heldout_rmse_ooc"] == cmp["heldout_rmse_resident"],
+              f"bench_ooc {residency}: the same held-out RMSE")
+        check(abs(cmp["heldout_rmse_ooc"] - main_rmse[2]) <= OOC_MAIN_TOL,
+              f"bench_ooc {residency}: held-out RMSE after 3 epochs "
+              f"{cmp['heldout_rmse_ooc']:.7f} within {OOC_MAIN_TOL} of the "
+              f"main path's epoch 3 {main_rmse[2]:.7f}")
+        check(ln["spd_solve"] > 0 and ln["fused_gram"] > 0,
+              f"bench_ooc {residency}: K1 and fused_gram launched")
+        if residency == "device":
+            check(r["residency"]["streamed_mb"] == 0, "bench_ooc device: "
+                  "the whole wire pinned")
+    r, _ = tool("bench_ooc --probe", bench_ooc, ["--scale", "ml20m",
+                                                 "--probe"])
+    check(all(v > 0 for v in r["wire_MBps"].values()), "the probe's rates")
+    gb_s = {k: round(v * 2**20 / 1e9, 2) for k, v in r["wire_MBps"].items()}
+    log(f"bench_ooc probe: host-to-device from pinned memory {gb_s} GB/s "
+        f"(CUDA events); on {smi}")
+    r, ln = tool("bench_ooc --algo sgd", bench_ooc,
+                 ["--scale", "ml20m", "--algo", "sgd", "--epochs",
+                  str(TOOL_EPOCHS), "--rmse"])
+    check(r["heldout_rmse"][-1] < r["heldout_rmse"][0] and ln["row_gather"]
+          > 0, "bench_ooc --algo sgd: held-out RMSE falls, row_gather ran")
+    rows, ln = tool("bench_bpr_batch", bench_bpr_batch,
+                    ["--batches", "65536", "262144", "--epochs",
+                     str(TOOL_EPOCHS)])
+    check(len(rows) == 2 and all(np.isfinite(h) for x in rows
+                                 for h in x["hit10"])
+          and ln["row_gather"] > 0, "bench_bpr_batch: a line a batch "
+          "size, hit@10 finite, row_gather ran")
+    r, _ = tool("soak", soak, ["--duration", str(SOAK_S)])
+    check(r["errors"] == 0 and r["epoch_regressions"] == 0
+          and r["republishes"] >= SOAK_S // 2 - 1,
+          "soak: no error response, no epoch going back on a connection")
+    r, _ = tool("loadgen", loadgen, ["--store", cli["store"], "--ckpt",
+                                     cli["ckpt"], "--serve-arg=--precompute"])
+    check(r["errors"] == 0 and r["requests"] == 12_800,
+          "loadgen: every request answered, no error")
+    r, _ = tool("quality_calibrated", quality_calibrated,
+                ["--scale", "ml20m", "--epochs", str(TOOL_EPOCHS), "--out",
+                 os.path.join(tmp, "quality")])
+    for x in r["results"]:
+        check(x["hit_at_n"][-1] > x["hit_at_n"][0],
+              f"quality_calibrated {x['algo']}: hit@10 rises")
+    log(f"tools phase kernel launches: {launches}")
+    out["launches"] = launches
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on a GPU only", file=sys.stderr)
         sys.exit(1)
-    run(torch.device("cuda", 0))
+    with tempfile.TemporaryDirectory(prefix="ycnr_smoke_cache_") as cache:
+        # the bench cache of every bench and tool run of this script, the
+        # subprocesses' too (they inherit the environment)
+        os.environ["YCNR_BENCH_CACHE"] = cache
+        run(torch.device("cuda", 0))
 
 
 def run(dev):
@@ -3536,10 +3863,8 @@ def run(dev):
     from ycnr_tpu_torch.ops import _build, fused_topn
     from ycnr_tpu_torch.serve.cache import RecCache
     from ycnr_tpu_torch.serve.engine import Recommender
-    from ycnr_tpu_torch.data.split import train_test_split
-    from ycnr_tpu_torch.data.synthetic import synthetic_ratings
-    from ycnr_tpu_torch.ops.bucketed import build_bucketed
     from ycnr_tpu_torch.ops.layout import build_blocked_csr, pad_coo
+    from ycnr_tpu_torch.tools import bench as tbench
 
     ycnr_tpu_torch.full_precision_matmul()
     name = torch.cuda.get_device_name(dev)
@@ -3550,10 +3875,18 @@ def run(dev):
     log(f"device: {name} x {torch.cuda.device_count()}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
+    # the nvcc processes beside the main path's data on the host; no timed
+    # phase runs until both are done
+    def build():
+        t0 = time.time()
+        _build.load_library()
+        return time.time() - t0
 
-    t0 = time.time()
-    _build.load_library()
-    log(f"build: kernels compiled and loaded in {time.time() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        built = pool.submit(build)
+        (u, i, r), ((tu, ti, tr), (su, si, sr)) = main_data()
+        log(f"build: kernels compiled and loaded in {built.result():.1f} s "
+            f"(beside the data)")
 
     phase_ingest()
     k1 = phase_k1(dev)
@@ -3566,20 +3899,14 @@ def run(dev):
     sync()
 
     # ---- main path, exactly as bench.py runs it -------------------------
+    # on the arrays in the port's bench cache (the script's own directory),
+    # which every later bench and tool run reads; layouts cached there too
     n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
                                                      "rank", "lam"))
-    t0 = time.time()
-    u, i, r = synthetic_ratings(n_users, n_items, MAIN["n_ratings"],
-                                true_rank=16,
-                                noise=0.3, seed=0)
-    (tu, ti, tr), (su, si, sr) = train_test_split(u, i, r, 0.05, 0)
-    log(f"data: {len(r):,} ratings in {time.time() - t0:.1f} s")
-    t0 = time.time()
-    ul = build_bucketed(tu, ti, tr, n_users, n_items, 32, rank,
-                        max_groups=MAIN["groups"])
-    il = build_bucketed(ti, tu, tr, n_items, n_users, 32, rank,
-                        max_groups=MAIN["groups"])
-    log(f"layouts: {time.time() - t0:.1f} s; user rows per group "
+    data_tag = tbench.coo_tag(n_users, n_items, MAIN["n_ratings"], 0)
+    ul, il = tbench.cached_layouts(tu, ti, tr, n_users, n_items, 32, rank,
+                                   "bucketed", MAIN["groups"], data_tag)
+    log(f"layouts (from the bench cache): user rows per group "
         f"{[g.rows for g in ul]}, item rows per group {[g.rows for g in il]}")
     dul = device_bucketed(ul, torch.float32, dev,
                           rating_dtype=torch.bfloat16)
@@ -3703,7 +4030,11 @@ def run(dev):
         f"{1024 / batch_s:,.0f} recs/s; no rated item served by the cache "
         f"(K2) or the requests")
 
-    lay = build_blocked_csr(tu, ti, tr, n_users, n_items, 32, rank_hint=rank)
+    # both blocked views, from the bench cache (the user view serves; both
+    # are kept for the mesh phase's resident run)
+    lay, item_lay = tbench.cached_layouts(tu, ti, tr, n_users, n_items, 32,
+                                          rank, "blocked", MAIN["groups"],
+                                          data_tag)
     bits = bits_tensor(build_rated_bits(lay, n_items), dev)
     eids = torch.as_tensor(lay.entity_ids, device=dev)
     dlay = device_layout(lay, torch.float32, dev)
@@ -3721,11 +4052,6 @@ def run(dev):
 
     # ---- blocked-layout path vs the bucketed path (f32 gathers) --------
     del dul, dil, epoch
-    t0 = time.time()
-    item_lay = build_blocked_csr(ti, tu, tr, n_items, n_users, 32,
-                                 rank_hint=rank)
-    log(f"blocked item layout built in {time.time() - t0:.1f} s (host; kept "
-        f"with the user layout for the mesh phase's resident run)")
     blocked_launches = phase_blocked(dev, lay, item_lay, ul, il, test_coo)
     del dlay, bits, eids
     sync()
@@ -3773,6 +4099,11 @@ def run(dev):
             ooc_mesh = phase_ooc_mesh(dev, tu, ti, tr, (lay, item_lay),
                                       mesh, rmse, cli, tmp, smi)
             del lay, item_lay
+            sync()
+            # ---- the measuring layer: the bench, then the tools ---------
+            bench_ph = phase_bench(dev, rmse, smi)
+            sync()
+            tools_ph = phase_tools(dev, rmse, cli, smi, tmp)
     finally:  # a name already unlinked is a no-op
         get_shm_lib().ycnr_shm_unlink(names["train"].encode())
         get_shm_lib().ycnr_shm_unlink(names["serve"].encode())
@@ -3820,12 +4151,17 @@ def run(dev):
                      ("train --publish-shm", serve["train"]),
                      ("serve cold:", serve["cold"]), ("ooc", ooc["launches"]),
                      ("mesh", mesh["launches"]),
-                     ("ooc mesh", ooc_mesh["launches"])):
+                     ("ooc mesh", ooc_mesh["launches"]),
+                     ("tools", tools_ph["launches"])):
         check(ln["spd_solve tiled"] == 0, f"{what}: K1's tiled body never "
               f"launched at rank 64")
     log(f"K1's tiled body: 0 launches on every rank-64 path; "
         f"{r128['launches']['spd_solve tiled']} in the rank-128 train(), "
         f"{wide['k1_n192']} at n = 192, {wide['k1_n256']} at n = 256")
+
+    def measuring(key):
+        """Launches of the bench's and the tools' in-process runs."""
+        return bench_ph["launches"][key] + tools_ph["launches"][key]
 
     row, take = gather["row_gather"], gather["take_along_rows"]
     kernels = [
@@ -3835,7 +4171,8 @@ def run(dev):
          "launches": launches["spd_solve"] + serve["train"]["spd_solve"]
          + serve["cold"]["spd_solve"] + ooc["launches"]["spd_solve"]
          + mesh["launches"]["spd_solve"]
-         + ooc_mesh["launches"]["spd_solve"],
+         + ooc_mesh["launches"]["spd_solve"] + measuring("spd_solve")
+         - measuring("spd_solve tiled"),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
@@ -3844,7 +4181,7 @@ def run(dev):
          "replaces": "ycnr_tpu/ops/pallas_topn.py:100",
          "launches": launches["fused_scores"] + bpr["k2_launches"]
          + serve["precompute"]["fused_scores"]
-         + mesh["launches"]["fused_scores"],
+         + mesh["launches"]["fused_scores"] + measuring("fused_scores"),
          "max_abs_err": max(k2["bf16"]["max_abs_err"],
                             k2["f32"]["max_abs_err"]),
          "ms": k2["bf16"]["ms"], "plain_ms": k2["bf16"]["plain_ms"],
@@ -3859,7 +4196,7 @@ def run(dev):
          + fold_launches["row_gather"] + online["add"]["row_gather"]
          + online["cold"]["row_gather"] + serve["cold"]["row_gather"]
          + ooc["launches"]["row_gather"] + mesh["launches"]["row_gather"]
-         + ooc_mesh["launches"]["row_gather"],
+         + ooc_mesh["launches"]["row_gather"] + measuring("row_gather"),
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]},
@@ -3891,7 +4228,7 @@ def run(dev):
          "replaces": "tools/probe_gather.py:207",
          "launches": launches["fused_gram"] + serve["train"]["fused_gram"]
          + ooc["launches"]["fused_gram"]
-         + ooc_mesh["launches"]["fused_gram"],
+         + ooc_mesh["launches"]["fused_gram"] + measuring("fused_gram"),
          "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
          "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
          "bound_by": gram["bound_by"], "library_ms": None},
@@ -3907,7 +4244,8 @@ def run(dev):
          "bound_ms": k1_wide[n]["bound_ms"],
          "bound_by": k1_wide[n]["bound_by"],
          "library_ms": k1_wide[n]["library_ms"]}
-        for n, n_launch in ((128, r128["launches"]["spd_solve tiled"]),
+        for n, n_launch in ((128, r128["launches"]["spd_solve tiled"]
+                             + measuring("spd_solve tiled")),
                             (192, wide["k1_n192"]), (256, wide["k1_n256"]))
     ]
     print(smi, flush=True)

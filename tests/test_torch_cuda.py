@@ -958,3 +958,59 @@ def test_sharded_ooc_train_two_gloo_ranks_on_one_card(dev):
     np.testing.assert_allclose(got.rmse_history, ref.rmse_history, rtol=0,
                                atol=1e-4)
     assert not got.state.U[-1].any() and not got.state.V[-1].any()
+
+
+def test_bench_process_prints_one_line_on_the_card(dev, tmp_path):
+    """python -m ycnr_tpu_torch.tools.bench --smoke --topn with no
+    --device: it runs on the card, exactly one stdout line with bench.py's
+    keys and vs_baseline null, the diagnostics on stderr."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, YCNR_BENCH_CACHE=str(tmp_path))
+    res = subprocess.run([sys.executable, "-m", "ycnr_tpu_torch.tools.bench",
+                          "--smoke", "--topn"], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert set(out) == {"metric", "value", "unit", "vs_baseline",
+                        "steady_16g_s"}
+    assert out["vs_baseline"] is None and out["value"] > 0
+    assert "device: cuda" in res.stderr and "rated items served: 0" in \
+        res.stderr
+
+
+def test_wire_probe_times_pinned_copies_to_the_card(dev):
+    from ycnr_tpu_torch.tools.bench_ooc import wire_probe
+
+    got = wire_probe(dev)
+    assert set(got) == {"u16_deltas", "i8_noise", "f32_noise"}
+    # 32 MiB copies from pinned memory: GB/s, far above a pageable copy's
+    # first-touch rate
+    assert all(v > 1000 for v in got.values()), got
+
+
+def test_groups_both_frees_the_first_runs_layouts(dev, tmp_path,
+                                                  monkeypatch):
+    """--groups both: the 16-group run starts with none of the 8-group
+    run's device memory held (its layouts are freed first), so the peak
+    does not add the two. A first run makes what torch keeps for the
+    process (cuBLAS's workspace, 32 MiB) before the two are compared."""
+    from ycnr_tpu_torch.tools import bench as tbench
+
+    monkeypatch.setenv("YCNR_BENCH_CACHE", str(tmp_path))
+    tbench.main(["--smoke", "--groups", "8"])
+    real, seen = tbench.run_bench, []
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        seen.append(torch.cuda.memory_allocated(dev))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tbench, "run_bench", run)
+    tbench.main(["--smoke", "--groups", "both"])
+    assert len(seen) == 2 and seen[1] == seen[0], seen

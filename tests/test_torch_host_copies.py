@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's host code give the same
 arrays as the originals, bit for bit: synthetic ratings, the splits, the
-MovieLens parser, the dataset loader, the bucketed and blocked layouts,
-``pad_coo``, the run configs (``asdict``, which a checkpoint manifest
+MovieLens parser, the dataset loader, the bucketed and blocked layouts and
+their stats, ``pad_coo``, the helpers its measuring tools copied from the
+root ``bench.py`` and ``tools/`` (layout blobs, scales, the planted
+generator, percentiles), the run configs (``asdict``, which a checkpoint manifest
 carries across the packages), the NumPy oracle, the metrics logger, the
 in-process and the shared-memory recommendation caches (the same calls,
 the same answers), and the native shared-memory sources (byte for byte)."""
@@ -13,9 +15,17 @@ import tempfile
 import types
 import uuid
 
+import sys
+
 import numpy as np
 import pytest
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import bench as jbench  # noqa: E402  (the root bench.py)
+from tools import bench_ooc as jbench_ooc  # noqa: E402
+from tools import quality_calibrated as jquality  # noqa: E402
+from tools import soak as jsoak  # noqa: E402
 from ycnr_tpu import config as jconfig
 from ycnr_tpu import native as jnative
 from ycnr_tpu.data import dataset as jdataset
@@ -53,6 +63,10 @@ from ycnr_tpu_torch.parallel import sgd_stream as tpsgd
 from ycnr_tpu_torch.parallel import shard as tshard
 from ycnr_tpu_torch.serve import cache as tcache
 from ycnr_tpu_torch.train import metrics as tmetrics
+from ycnr_tpu_torch.tools import bench as tbench
+from ycnr_tpu_torch.tools import bench_ooc as tbench_ooc
+from ycnr_tpu_torch.tools import quality_calibrated as tquality
+from ycnr_tpu_torch.tools import soak as tsoak
 from test_torch_shm import build_jax_library
 
 
@@ -85,6 +99,46 @@ def _bucketed(m):
     return (m.build_bucketed(u, i, r, 200, 40, rank_hint=8, max_groups=5,
                              target_bytes=8 * 40 * 4 * 24),
             m.build_bucketed(i, u, r, 40, 200, rank_hint=8, max_groups=3))
+
+
+def _bucketed_stats(m):
+    return [m.bucketed_stats(g, 4000) for g in _bucketed(m)]
+
+
+def _layout_stats(m):
+    return [m.layout_stats(g, 1500) for g in _blocked(m)]
+
+
+def _tools(which):
+    """The root bench / tools helpers of one package, with its builders."""
+    if which == "jax":
+        return types.SimpleNamespace(bench=jbench, ooc=jbench_ooc,
+                                     quality=jquality, soak=jsoak,
+                                     bucketed=jbucketed, layout=jlayout)
+    return types.SimpleNamespace(bench=tbench, ooc=tbench_ooc,
+                                 quality=tquality, soak=tsoak,
+                                 bucketed=tbucketed, layout=tlayout)
+
+
+def _layout_blob(m, kind):
+    """bench._flatten_layout of both views of one layout kind."""
+    lays = _bucketed(m.bucketed) if kind == "bucketed" else _blocked(m.layout)
+    blob = {}
+    for prefix, lay in zip(("ul", "il"), lays):
+        m.bench._flatten_layout(prefix, lay, blob)
+    return {k: np.asarray(v) for k, v in blob.items()}
+
+
+def _planted(m):
+    """bench_ooc's scales and planted bias model (the portioned scales'
+    generator and held-out draw), quality_calibrated's scales, soak's
+    percentiles."""
+    bu, bi = m.ooc._planted_biases(500, 60, seed=4)
+    draw = m.ooc._planted_draw(np.random.default_rng(9), bu, bi, 500, 60,
+                               3000)
+    lat = list(np.random.default_rng(2).random(101))
+    return (m.ooc.SCALES, m.quality.SCALES, bu, bi, draw,
+            [m.soak.pctl(lat, p) for p in (50, 99)], m.soak.pctl([], 50))
 
 
 def _blocked(m):
@@ -438,6 +492,14 @@ _CASES = {
     "train_test_split": (jsplit, tsplit, _random_split),
     "split_coo_time_last_out": (jsplit, tsplit, _timed_splits),
     "build_bucketed": (jbucketed, tbucketed, _bucketed),
+    "bucketed_stats": (jbucketed, tbucketed, _bucketed_stats),
+    "layout_stats": (jlayout, tlayout, _layout_stats),
+    "bench_layout_blob_bucketed": (_tools("jax"), _tools("torch"),
+                                   lambda m: _layout_blob(m, "bucketed")),
+    "bench_layout_blob_blocked": (_tools("jax"), _tools("torch"),
+                                  lambda m: _layout_blob(m, "blocked")),
+    "tools_scales_planted_draw_pctl": (_tools("jax"), _tools("torch"),
+                                       _planted),
     "build_blocked_csr": (jlayout, tlayout, _blocked),
     "pad_coo": (jlayout, tlayout, _pad_coo),
     "load_movielens": (jmovielens, tmovielens, _movielens),

@@ -81,6 +81,10 @@ _SLICE_MODULES = {
     "ycnr_tpu_torch.parallel.dual", "ycnr_tpu_torch.parallel.rank_main",
     "ycnr_tpu_torch.train.sharded", "ycnr_tpu_torch.examples.sharded_train",
     "ycnr_tpu_torch.parallel.ooc_mesh",
+    "ycnr_tpu_torch.tools.bench", "ycnr_tpu_torch.tools.bench_ooc",
+    "ycnr_tpu_torch.tools.bench_bpr_batch", "ycnr_tpu_torch.tools.soak",
+    "ycnr_tpu_torch.tools.loadgen",
+    "ycnr_tpu_torch.tools.quality_calibrated",
 }
 
 
@@ -121,9 +125,11 @@ def test_kernel_sources_are_in_the_package():
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No module of the port and not chip_smoke.py imports ycnr_tpu: the
-    port keeps its own copies of the host code it needs."""
-    pat = re.compile(r"^\s*(from|import)\s+ycnr_tpu(\.|\s|$)", re.M)
+    """No module of the port and not chip_smoke.py imports ycnr_tpu, nor the
+    JAX package's root bench.py or its tools/: the port keeps its own
+    copies of the host code it needs."""
+    pat = re.compile(r"^\s*(from|import)\s+(ycnr_tpu|bench|tools)(\.|\s|$)",
+                     re.M)
     files = glob.glob(os.path.join(REPO, "ycnr_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     offenders = []

@@ -186,3 +186,15 @@ def build_bucketed(
             oi.reshape(nb, ne_b, R), rr.reshape(nb, ne_b, R),
             eid.reshape(nb, ne_b), cnt.reshape(nb, ne_b)))
     return tuple(groups)
+
+
+def bucketed_stats(groups: BucketedCSR, nnz: int) -> dict:
+    slots = sum(int(g.other_idx.size) for g in groups)
+    return {
+        "n_groups": len(groups),
+        "rows_per_group": [g.rows for g in groups],
+        "blocks_per_group": [g.other_idx.shape[0] for g in groups],
+        "padded_slots": slots,
+        "nnz": nnz,
+        "fill": nnz / slots if slots else 0.0,
+    }

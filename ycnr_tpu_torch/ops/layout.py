@@ -57,6 +57,18 @@ class BlockedCSR(NamedTuple):
     def n_blocks(self) -> int:
         return self.other_idx.shape[0]
 
+    @property
+    def block_chunks(self) -> int:
+        return self.other_idx.shape[1]
+
+    @property
+    def chunk_len(self) -> int:
+        return self.other_idx.shape[2]
+
+    @property
+    def block_entities(self) -> int:
+        return self.entity_ids.shape[1]
+
 
 def _auto_block_chunks(total_chunks: int, chunk_len: int, rank_hint: int = 64,
                        target_bytes: int = 192 * 2**20) -> int:
@@ -187,6 +199,19 @@ def build_blocked_csr(
             + np.arange(total_chunks) - first[a_ch]] = slot_of[a_ch]
 
     return BlockedCSR(out_oi, out_r, out_seg, out_eid, out_cnt)
+
+
+def layout_stats(layout: BlockedCSR, nnz: int) -> dict:
+    """Padding-efficiency stats (SURVEY.md §7 hard part: padding waste)."""
+    slots = layout.other_idx.size
+    return {
+        "n_blocks": layout.n_blocks,
+        "block_chunks": layout.block_chunks,
+        "chunk_len": layout.chunk_len,
+        "padded_slots": slots,
+        "nnz": nnz,
+        "fill": nnz / slots if slots else 0.0,
+    }
 
 
 def pad_coo(user_idx, item_idx, rating, n_users: int, n_items: int,
