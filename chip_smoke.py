@@ -28,7 +28,12 @@ Run from the repository root:  python3 chip_smoke.py
    bucketed layout (8 groups), bf16 gathers through the fused gather ->
    Gram kernel with the ridge in its epilogue
    (first held to its bound on the smallest-R and largest-R blocks of both
-   layouts), then K1; 4 epochs with held-out RMSE, held to the reference
+   layouts, then on every block of the user layout with a bf16 table of
+   the item factor's shape at w 128, 192, 256 and 250: the 4-warp body's
+   widest and the wide body's, each within its bound of the plain version
+   and within F64_REL of float64, bit-symmetric, padding exact, a second
+   run bit-equal, timed beside the plain version and the bound), then
+   K1; 4 epochs with held-out RMSE, held to the reference
    trajectory and to PR 2's; epoch 3 profiled by kernel;
 7. serving: ``Recommender.precompute_all`` through K2 for every user,
    checked against the exact scorer on a sample, plus single and batch
@@ -63,19 +68,24 @@ Run from the repository root:  python3 chip_smoke.py
     ``similar`` / ``precompute_similar`` against a float64 cosine,
     ``recommend_cold``;
 15. K1's tiled body (64 < n <= 256) at n = 65, 96, 127, 128, 129, 160,
-    192, 250 and 256 on 20,000 guarded systems against a float64 solve
+    192, 250 and 256 on 20,000 guarded systems (4,096 at the five sizes
+    not timed) against a float64 solve
     (within cond(A) n 2^-24 on the first 512), padding rows exactly 0, and
     on 64 well-conditioned systems against its plain-torch mirror
     (``tests/k1_tiled_mirror.py``, 1e-5); timed at n = 96, 128,
     192 and 256 as in item 3 (run right after item 3);
 16. ALS-WR at ranks 128 and 192 with bf16 gathers through ``train()`` on
-    the ML-20M-shaped set, 2 epochs each: at 128 ``fused_gram`` -> K1's
-    tiled body, at 192 row gather -> einsum -> K1, no ``fused_gram``; RMSE
-    falls, trash and cold rows 0, held-out RMSE within 2e-6 of the same run
-    with the solve patched to the plain version in float64, while a control
-    run with A and b rounded to TF32 differs by more; s/epoch, one
-    more epoch by kernel (K1's share); then fold-in of 256 users at rank
-    192 and, from a random start, at rank 256;
+    the ML-20M-shaped set, 2 epochs each: ``fused_gram`` (at 192 its wide
+    body; no ``row_gather``) -> K1's tiled body; RMSE
+    falls, trash and cold rows 0, held-out RMSE within 2e-6 and the
+    factors within 1e-2 of the same run with the solve patched to the plain
+    version in float64, while a control run with A and b rounded to TF32
+    fails that pair; at 192 also the same
+    run with the route patched back to row gather -> einsum -> K1 (within
+    1e-4 at each epoch) and ``train(ooc=True)`` with the wire pinned (bit
+    for bit); s/epoch, one more epoch by kernel (K1's share); one rank-256
+    epoch on the rank-192 layouts (the wide body at w 256); then fold-in
+    of 256 users at rank 192 and, from a random start, at rank 256;
 17. the command line in process (``ycnr_tpu_torch.cli.main``) at full
     width from a ``RatingsStore`` of the same arrays: ``train --preset
     ml20m-als`` (the main path's split through a config file) held to an
@@ -133,8 +143,8 @@ Run from the repository root:  python3 chip_smoke.py
     run's, trash and cold rows 0, K1 and ``fused_gram`` launched on every
     rank, peak memory a rank); on a wire the launcher builds once, 4
     pinned epochs through ``make_sharded_ooc_epoch`` (s/epoch, 445,036,800
-    bytes all-reduced a rank an epoch, epoch 3 by kernel and the idle
-    share) and a streamed pair bit-equal to them (bytes staged); at D = 2
+    bytes all-reduced a rank an epoch, at D = 1 epoch 3 by kernel and the
+    idle share) and a streamed pair bit-equal to them (bytes staged); at D = 2
     one iALS epoch (K1 and ``row_gather`` on every rank) against a
     resident blocked iALS epoch; and ``train --ooc --shards 2
     --dist-backend gloo --epochs 2`` from item 17's store.
@@ -377,10 +387,11 @@ def k1_times(A, b, iters: int) -> dict:
 
 
 # K1's tiled body: the sizes held to float64 and to its mirror, and the
-# sizes timed (rank 96 and 128 run fused_gram + K1; 192 and 256 the
-# einsum route and fold-in)
+# sizes timed (every rank from 65 to 256 runs fused_gram + K1, 128 and
+# 192 through train(), 256 one epoch; fold-in at 192 and 256)
 K1_WIDE_NS = (65, 96, 127, 128, 129, 160, 192, 250, 256)
 K1_TIMED_NS = (96, 128, 192, 256)
+K1_UNTIMED_B = 4_096  # systems held to float64 at the sizes not timed
 # the kernel against its plain-torch mirror (tests/k1_tiled_mirror.py) on
 # well-conditioned systems: the same operations in the same order, the
 # kernel's multiply-adds fused, the mirror's rounded twice
@@ -402,7 +413,8 @@ def k1_tiled_mirror():
 
 def phase_k1_wide(dev) -> dict:
     """K1's tiled body (64 < n <= 256) at every n of K1_WIDE_NS, on B =
-    20,000 guarded systems (padding systems among them): held to a float64
+    20,000 guarded systems (K1_UNTIMED_B at the sizes not timed; padding
+    systems among them): held to a float64
     solve within K1_RTOL over all systems and within f32 Cholesky's
     forward error cond(A) n 2^-24 on the first 512 (eigenvalues in
     float64), padding rows exactly 0; on 64 well-conditioned systems held
@@ -417,7 +429,7 @@ def phase_k1_wide(dev) -> dict:
     gen.manual_seed(11)
     out = {}
     for n in K1_WIDE_NS:
-        B = 20_000
+        B = 20_000 if n in K1_TIMED_NS else K1_UNTIMED_B
         A, b, pad = guarded_systems(n, B, seed=n, dev=dev)
         x = spd_solve_cuda(A, b)
         ref = spd_solve_reference(A.double(), b.double())
@@ -774,6 +786,150 @@ def phase_fused_gram(state, dul, dil) -> dict:
             "bound_ms": bnd[0], "bound_by": bnd[1]}
 
 
+# fused_gram on one user phase's blocks at these widths: the 4-warp body's
+# widest (for reference) and the wide body's, one of them w % 8 != 0 (its
+# plain loads)
+GRAM_WIDTHS = (128, 192, 256, 250)
+GRAM_CHECK_ENTITIES = 2048  # entities a check's float64 sums take at once
+
+
+def phase_fused_gram_widths(dul, n_items: int, smi: str) -> dict:
+    """fused_gram with the main path's ridge on one user phase's blocks
+    (the main path's layout: 42 blocks, its padding entities included) on
+    a bf16 table of the item factor's shape, [n_items + 1, w] with the
+    zero trash row last, at every width of GRAM_WIDTHS: each block within
+    fused_gram_bound of the plain version and within F64_REL of a float64
+    sum, A bit-symmetric, padding entities exactly A = reg I, b = 0, a
+    second run bit-equal; then the phase timed (CUDA events) beside the
+    plain version and the bound (the bytes of A)."""
+    from ycnr_tpu_torch.ops.fused_gram import (F64_REL, NARROW_W,
+                                               fused_gram_bound,
+                                               fused_gram_cuda,
+                                               fused_gram_f64_error,
+                                               fused_gram_reference)
+
+    lam = MAIN["lam"]
+    dev = dul[0].other_idx.device
+    blocks = [(oi, rr, lam * c + (c == 0), eid) for g in dul
+              for oi, rr, c, eid in zip(g.other_idx, g.rating, g.entity_cnt,
+                                        g.entity_ids)]
+    n_users = MAIN["n_users"]
+    out = {}
+    for w in GRAM_WIDTHS:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(w)
+        table = (0.1 * torch.randn(n_items + 1, w, generator=gen,
+                                   device=dev)).bfloat16()
+        table[-1] = 0
+        worst_abs = worst_share = worst_rel = worst_plain = 0.0
+        n_pad = 0
+        for oi, rr, reg, eid in blocks:
+            A, b = fused_gram_cuda(table, oi, rr, reg)
+            A2, b2 = fused_gram_cuda(table, oi, rr, reg)
+            sync()
+            check(torch.equal(A, A2) and torch.equal(b, b2),
+                  f"fused_gram w={w}: a second run bit-equal")
+            del A2, b2
+            check(torch.equal(A, A.transpose(1, 2)),
+                  f"fused_gram w={w}: A bit-symmetric")
+            pad = eid == n_users
+            n_pad += int(pad.sum())
+            check(bool((A[pad] == reg[pad][:, None, None]
+                        * torch.eye(w, device=dev)).all()
+                       and (b[pad] == 0).all()),
+                  f"fused_gram w={w}: padding entities exactly A = reg I, "
+                  f"b = 0")
+            for c0 in range(0, oi.shape[0], GRAM_CHECK_ENTITIES):
+                c = slice(c0, c0 + GRAM_CHECK_ENTITIES)
+                Ap, bp = fused_gram_reference(table, oi[c], rr[c], reg[c])
+                bA, bb = fused_gram_bound(table[oi[c]].float(), rr[c],
+                                          reg[c])
+                errA, errb = (A[c] - Ap).abs(), (b[c] - bp).abs()
+                check(bool((errA <= bA).all() and (errb <= bb).all()),
+                      f"fused_gram w={w}: within its bound of the plain "
+                      f"version")
+                rel = fused_gram_f64_error(table, oi[c], rr[c], reg[c],
+                                           A[c], b[c])
+                rel_p = fused_gram_f64_error(table, oi[c], rr[c], reg[c],
+                                             Ap, bp)
+                worst_abs = max(worst_abs, errA.max().item(),
+                                errb.max().item())
+                worst_share = max(worst_share, (errA / bA.clamp_min(
+                    1e-30)).max().item())
+                worst_rel = max(worst_rel, *rel)
+                worst_plain = max(worst_plain, *rel_p)
+                del Ap, bp, bA, bb, errA, errb
+            del A, b
+        check(n_pad > 0, f"fused_gram w={w}: the blocks hold padding")
+        check(worst_rel <= F64_REL,
+              f"fused_gram w={w}: within {F64_REL:.3e} of float64")
+        torch.cuda.empty_cache()
+
+        def phase(fn):
+            for oi, rr, reg, _ in blocks:
+                fn(table, oi, rr, reg)
+
+        plain_ms = cuda_ms(lambda: phase(fused_gram_reference), iters=2,
+                           warmup=1)
+        ms = cuda_ms(lambda: phase(fused_gram_cuda), iters=3, warmup=1)
+        ms = min(ms, cuda_ms(lambda: phase(fused_gram_cuda), iters=3,
+                             warmup=0))
+        slots = sum(oi.numel() for oi, _, _, _ in blocks)
+        ents = sum(oi.shape[0] for oi, _, _, _ in blocks)
+        nbytes = (slots * (blocks[0][0].element_size() + 2)
+                  + ents * 4 * (1 + w * w + w)
+                  + len(blocks) * table.numel() * 2)
+        bnd = bound_ms(nbytes, slots * (w * (w + 1) + 2 * w), PEAK_BF16)
+        body = "4-warp" if w <= NARROW_W else "wide"
+        log(f"fused_gram (ridge) w={w} ({body} body), one user phase "
+            f"({len(blocks)} blocks, {slots:,} slots, {ents:,} entities, "
+            f"{n_pad:,} padding): within its bound of the plain version "
+            f"(largest share {worst_share:.3e}, max abs {worst_abs:.3e}), "
+            f"against float64 {worst_rel:.3e} (plain f32 {worst_plain:.3e};"
+            f" limit {F64_REL:.3e}), bit-symmetric, padding exact, a second"
+            f" run bit-equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bnd[0]:.3f} ms ({bnd[1]}), {bnd[0] / ms:.3f} of it; on "
+            f"{smi}")
+        out[w] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bnd[0], "bound_by": bnd[1]}
+        if w % 64 == 0:
+            out[w].update(gram_split(table, gen, smi))
+        del table
+        torch.cuda.empty_cache()
+    return out
+
+
+def gram_split(table, gen, smi: str) -> dict:
+    """Where fused_gram's time goes at the table's width: long lists whose
+    A is negligible (264 entities x 16,384 slots: the loop, ns a slot) and
+    short lists whose A is most of the bytes (25,000 x 16: the share of
+    the byte bound), random rows, no ridge."""
+    from ycnr_tpu_torch.ops.fused_gram import fused_gram_cuda
+
+    n, w = table.shape
+    dev = table.device
+    res = {}
+    for name, ne, R in (("long", 264, 16_384), ("short", 25_000, 16)):
+        idx = torch.randint(0, n - 1, (ne, R), generator=gen, device=dev)
+        rat = (1 + 4 * torch.rand(ne, R, generator=gen, device=dev)
+               ).bfloat16()
+        ms = cuda_ms(lambda: fused_gram_cuda(table, idx, rat), iters=3,
+                     warmup=1)
+        bnd = bound_ms(ne * R * 10 + ne * 4 * (w * w + w) + n * w * 2,
+                       ne * R * (w * (w + 1) + 2 * w), PEAK_BF16)
+        res[name] = {"ms": ms, "ns_slot": ms * 1e6 / (ne * R),
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+        del idx, rat
+    lg, sh = res["long"], res["short"]
+    log(f"fused_gram w={w}, where the time goes: long lists (264 x 16,384) "
+        f"{lg['ms']:.3f} ms = {lg['ns_slot']:.3f} ns a slot, bound "
+        f"{lg['bound_ms']:.3f} ms ({lg['bound_by']}); short lists (25,000 "
+        f"x 16) {sh['ms']:.3f} ms, bound {sh['bound_ms']:.3f} ms "
+        f"({sh['bound_by']}), {sh['bound_ms'] / sh['ms']:.3f} of it; on "
+        f"{smi}")
+    return {"split": res}
+
+
 def phase_ingest():
     """The native parser, built here, against the Python parser on an
     ML-20M-format file with a header (host code; no kernel)."""
@@ -1011,6 +1167,23 @@ def phase_fold_in(state, tu, ti, tr) -> dict:
 # A and b rounded to TF32 reads (tf32_solve: 1.0e-5 / 7.8e-6; PERF.md
 # section 2)
 WIDE_F64_RMSE_TOL = 2e-6
+# ... and the factors after those epochs against the float64 run's, the
+# largest |U - U64| over the largest |U64| (and V's). Held-out RMSE alone
+# does not always tell the TF32 control from the float64 run: the same
+# rounding moved it by 1.6e-6 to 1.0e-5 at rank 128 and by 3.6e-7 to
+# 7.7e-6 at rank 192, by route (fused_gram or the einsum), while the
+# factors read 2.3e-3 to 4.0e-3 for K1 and 2.5e-2 to 4.4e-2 for the
+# control in all four (NVIDIA H100 80GB HBM3, 700 W). The control must
+# fail the two together.
+WIDE_F64_FACTOR_TOL = 1e-2
+# rank 192 through fused_gram's wide body against the same run from the
+# same start with the route patched back to row gather -> einsum -> K1:
+# the same exact bf16 products, summed in another order
+ROUTE_RMSE_TOL = 1e-4
+# the rank-192 epoch on the einsum route, before fused_gram took w 192
+# (NVIDIA H100 80GB HBM3, 700.00 W): device ms by the profiler, s/epoch
+EINSUM_RANK192_DEV_MS = 353.58
+EINSUM_RANK192_S_EPOCH = (0.3584, 0.3753)
 
 
 def float64_solve(A, b):
@@ -1050,15 +1223,40 @@ def patched_solve(solve):
         yield
 
 
+@contextlib.contextmanager
+def patched_route():
+    """While open, ``uses_fused`` answers False where train() and the
+    bucketed phase ask it: bf16 ALS-WR takes row gather -> einsum -> K1
+    (``guarded_batched_solve``) at every width, with f32 ratings in its
+    layouts, as the JAX package's route does."""
+    from unittest import mock
+
+    from ycnr_tpu_torch.models import bucketed_phase
+    from ycnr_tpu_torch.train import loop
+
+    def never(*a, **kw):
+        return False
+
+    with mock.patch.object(bucketed_phase, "uses_fused", never), \
+            mock.patch.object(loop, "uses_fused", never):
+        yield
+
+
 def wide_train(dev, rank: int, tu, ti, tr, su, si, sr, tmp: str,
-               smi: str) -> dict:
+               smi: str, wide_checks: bool = False) -> dict:
     """ALS-WR at ``rank`` with bf16 gathers through train() on the
     ML-20M-shaped set, 2 epochs (lam 0.05, 8 groups), then the same run
     from the same start with ``float64_solve`` patched in: held-out RMSE
     within WIDE_F64_RMSE_TOL at each epoch, RMSE falling, trash and cold
-    rows 0; the control run with ``tf32_solve`` must differ from the
-    float64 run by more than WIDE_F64_RMSE_TOL. Then one more epoch on
-    train()'s own layouts profiled by kernel."""
+    rows 0, and the factors within WIDE_F64_FACTOR_TOL; the control run
+    with ``tf32_solve`` must differ from the float64 run by more than
+    WIDE_F64_RMSE_TOL in RMSE or WIDE_F64_FACTOR_TOL in the factors. With
+    ``wide_checks`` (the
+    rank above fused_gram's 4-warp body) also the same run with the route
+    patched back to row gather -> einsum -> K1 (``patched_route``), within
+    ROUTE_RMSE_TOL at each epoch, and train(ooc=True) with the wire
+    pinned, bit-equal in RMSE and factors. Then one more epoch on train()'s
+    own layouts profiled by kernel; the layouts are returned ("lays")."""
     from ycnr_tpu_torch.config import ALSConfig, DataConfig, RunConfig
     from ycnr_tpu_torch.data.dataset import Dataset
     from ycnr_tpu_torch.models.bucketed_phase import (als_epoch_fn,
@@ -1092,18 +1290,47 @@ def wide_train(dev, rank: int, tu, ti, tr, su, si, sr, tmp: str,
         wall64 = time.time() - t0
         with patched_solve(tf32_solve):
             ctl = train(cfg, dataset=ds, device=dev)
+        if wide_checks:
+            with patched_route():
+                reset_launches()
+                t0 = time.time()
+                alt = train(cfg, dataset=ds, device=dev)
+                sync()
+                alt_wall = time.time() - t0
+                alt_launches = read_launches()
+                # the control's reading on this route too (logged)
+                with patched_solve(float64_solve):
+                    alt_ref = train(cfg, dataset=ds, device=dev)
+                with patched_solve(tf32_solve):
+                    alt_ctl = train(cfg, dataset=ds, device=dev)
+            reset_launches()
+            t0 = time.time()
+            ooc_res = train(cfg.replace(ooc=True, ooc_residency="device"),
+                            dataset=ds, device=dev)
+            sync()
+            ooc_wall = time.time() - t0
+            ooc_launches = read_launches()
     s_epoch = [e["epoch_s"] for e in read_events(run_dir)
                if "rmse_test" in e]
     diff = [abs(a - b) for a, b in zip(res.rmse_history, ref.rmse_history)]
     diff_ctl = [abs(a - b) for a, b in zip(ctl.rmse_history,
                                            ref.rmse_history)]
+
+    def fac(st, f64=None):  # the factors against the float64 run's
+        f64 = f64 or ref.state
+        return max(factor_diff(st.U[:-1], f64.U[:-1])["scale"],
+                   factor_diff(st.V[:-1], f64.V[:-1])["scale"])
+
+    fac_k1, fac_ctl = fac(res.state), fac(ctl.state)
     log(f"{what} train() (2 epochs, layouts built inside): {wall:.1f} s, "
         f"s/epoch {s_epoch}; held-out rmse "
         f"{[round(x, 6) for x in res.rmse_history]}; with the plain solve "
         f"in float64 {[round(x, 6) for x in ref.rmse_history]} ({wall64:.1f}"
         f" s), |diff| {[f'{d:.2e}' for d in diff]}; control (A, b rounded "
         f"to TF32) {[round(x, 6) for x in ctl.rmse_history]}, |diff| "
-        f"{[f'{d:.2e}' for d in diff_ctl]}; kernel launches {launches}")
+        f"{[f'{d:.2e}' for d in diff_ctl]}; factors against the float64 "
+        f"run's (largest |diff| / largest |entry|): K1 {fac_k1:.3e}, "
+        f"control {fac_ctl:.3e}; kernel launches {launches}")
     check(launches["spd_solve tiled"] > 0 and launches["spd_solve tiled"]
           == launches["spd_solve"], f"{what}: every K1 launch the tiled "
           f"body's")
@@ -1113,9 +1340,13 @@ def wide_train(dev, rank: int, tu, ti, tr, su, si, sr, tmp: str,
     check(len(res.rmse_history) == len(ref.rmse_history) == 2
           and max(diff) <= WIDE_F64_RMSE_TOL, f"{what}: held-out rmse within "
           f"{WIDE_F64_RMSE_TOL} of the run with the float64 plain solve")
-    check(len(ctl.rmse_history) == 2 and max(diff_ctl) > WIDE_F64_RMSE_TOL,
+    check(fac_k1 <= WIDE_F64_FACTOR_TOL, f"{what}: factors within "
+          f"{WIDE_F64_FACTOR_TOL} of the run with the float64 plain solve")
+    check(len(ctl.rmse_history) == 2 and (max(diff_ctl) > WIDE_F64_RMSE_TOL
+                                          or fac_ctl > WIDE_F64_FACTOR_TOL),
           f"{what}: the TF32 control run differs from the float64 run by "
-          f"more than {WIDE_F64_RMSE_TOL}")
+          f"more than {WIDE_F64_RMSE_TOL} in held-out rmse or "
+          f"{WIDE_F64_FACTOR_TOL} in the factors")
     check(res.rmse_history[1] < res.rmse_history[0], f"{what}: held-out "
           f"rmse falls")
     check_trash_rows(res.state, what)
@@ -1125,6 +1356,42 @@ def wide_train(dev, rank: int, tu, ti, tr, su, si, sr, tmp: str,
           and not bool(res.state.V[torch.as_tensor(cold_i,
                                                    device=dev)].any()),
           f"{what}: cold rows stay 0")
+    out = {}
+    if wide_checks:
+        diff_alt = [abs(a - b) for a, b in zip(alt.rmse_history,
+                                               res.rmse_history)]
+        alt_d = [[abs(a - b) for a, b in zip(x.rmse_history,
+                                             alt_ref.rmse_history)]
+                 for x in (alt, alt_ctl)]
+        log(f"{what} with the route patched to row gather -> einsum -> K1: "
+            f"held-out rmse {[round(x, 6) for x in alt.rmse_history]}, "
+            f"|diff| to the fused_gram run {[f'{d:.2e}' for d in diff_alt]}"
+            f" ({alt_wall:.1f} s); kernel launches {alt_launches}; on this "
+            f"route against its float64 run: K1 |diff| "
+            f"{[f'{d:.2e}' for d in alt_d[0]]}, factors "
+            f"{fac(alt.state, alt_ref.state):.3e}; TF32 control |diff| "
+            f"{[f'{d:.2e}' for d in alt_d[1]]}, factors "
+            f"{fac(alt_ctl.state, alt_ref.state):.3e}")
+        check(alt_launches["fused_gram"] == 0
+              and alt_launches["row_gather"] > 0
+              and alt_launches["spd_solve tiled"] > 0,
+              f"{what}, route patched: row gather and K1, no fused_gram")
+        check(len(alt.rmse_history) == 2 and max(diff_alt) <= ROUTE_RMSE_TOL,
+              f"{what}: held-out rmse of the route-patched run within "
+              f"{ROUTE_RMSE_TOL} of the fused_gram run at each epoch")
+        log(f"{what} train(ooc=True), wire pinned: held-out rmse "
+            f"{[round(x, 6) for x in ooc_res.rmse_history]} ({ooc_wall:.1f}"
+            f" s, wire built inside); kernel launches {ooc_launches}")
+        check(ooc_res.rmse_history == res.rmse_history
+              and torch.equal(ooc_res.state.U, res.state.U)
+              and torch.equal(ooc_res.state.V, res.state.V),
+              f"{what}: train(ooc=True) bit-equal to the resident train() "
+              f"in rmse and factors")
+        check(ooc_launches["fused_gram"] > 0
+              and ooc_launches["spd_solve tiled"] > 0,
+              f"{what} ooc: fused_gram and K1's tiled body launched")
+        out["ooc_launches"] = ooc_launches
+        del alt, alt_ref, alt_ctl, ooc_res
     state = res.state
     del res, ref, ctl
     # one more epoch on train()'s own layouts, profiled by kernel
@@ -1136,13 +1403,18 @@ def wide_train(dev, rank: int, tu, ti, tr, su, si, sr, tmp: str,
                                       f"a {what} epoch", by_kernel)
     k1_ms = sum(v for k, v in by_kernel.items() if "spd_solve" in k)
     fg_ms = sum(v for k, v in by_kernel.items() if "fused_gram" in k)
+    was = (f" (the einsum route: {EINSUM_RANK192_DEV_MS} ms, "
+           f"{EINSUM_RANK192_S_EPOCH[0]}-{EINSUM_RANK192_S_EPOCH[1]} "
+           f"s/epoch)"
+           if rank == 192 else "")
     log(f"{what} epoch by kernel: K1 {k1_ms:.3f} ms = "
         f"{k1_ms / dev_ms:.3f} of {dev_ms:.3f} ms of device time, "
-        f"fused_gram {fg_ms:.3f}; on {smi}")
-    del lays, epoch, built
+        f"fused_gram {fg_ms:.3f}{was}; on {smi}")
+    del epoch, built
     torch.cuda.empty_cache()
-    return {"state": state, "launches": launches, "s_epoch": s_epoch,
-            "k1_ms": k1_ms, "dev_ms": dev_ms}
+    out.update(state=state, launches=launches, s_epoch=s_epoch,
+               k1_ms=k1_ms, fg_ms=fg_ms, dev_ms=dev_ms, lays=lays)
+    return out
 
 
 def phase_rank128(dev, tu, ti, tr, su, si, sr, tmp: str, smi: str) -> dict:
@@ -1151,23 +1423,51 @@ def phase_rank128(dev, tu, ti, tr, su, si, sr, tmp: str, smi: str) -> dict:
     out = wide_train(dev, 128, tu, ti, tr, su, si, sr, tmp, smi)
     check(out["launches"]["fused_gram"] > 0, "rank 128: fused_gram "
           "launched")
-    del out["state"]
+    del out["state"], out["lays"]
     return out
 
 
 def phase_rank192(dev, tu, ti, tr, su, si, sr, tmp: str, smi: str) -> dict:
-    """ALS-WR at rank 192 through train() (``wide_train``): above
-    fused_gram's width the phase takes row gather -> einsum -> K1 (the
-    tiled body at n = 192), so fused_gram must not launch. Then fold-in of
-    256 users at rank 192 (K1 at n = 192), and at rank 256 from a random
-    start (K1 at n = 256), each against a float64 solve."""
+    """ALS-WR at rank 192 through train() (``wide_train`` with its wide
+    checks): the phase takes fused_gram's wide body -> K1 (the tiled body
+    at n = 192), so fused_gram launches and row_gather does not; the
+    route patched back to row gather -> einsum -> K1 agrees within
+    ROUTE_RMSE_TOL and train(ooc=True) bit for bit. Then one rank-256
+    epoch on the same layouts (the wide body at w 256, K1 at n = 256), and
+    fold-in of 256 users at rank 192 (K1 at n = 192) and at rank 256 from
+    a random start (K1 at n = 256), each against a float64 solve."""
     from ycnr_tpu_torch.models.base import init_state
+    from ycnr_tpu_torch.models.bucketed_phase import als_epoch_fn
 
-    out = wide_train(dev, 192, tu, ti, tr, su, si, sr, tmp, smi)
+    out = wide_train(dev, 192, tu, ti, tr, su, si, sr, tmp, smi,
+                     wide_checks=True)
     launches = out["launches"]
-    check(launches["row_gather"] > 0, "row_gather launched at rank 192")
-    check(launches["fused_gram"] == 0, "fused_gram does not launch above "
-          "its width (the row gather -> einsum -> K1 route)")
+    check(launches["fused_gram"] > 0, "fused_gram launched at rank 192 "
+          "(its wide body)")
+    check(launches["row_gather"] == 0, "row_gather does not launch in the "
+          "rank-192 bf16 ALS-WR epochs")
+    # one epoch at rank 256 on the rank-192 run's layouts (they hold bf16
+    # ratings, as the fused branch reads at every width up to 256)
+    st = init_state(MAIN["n_users"], MAIN["n_items"], 256, seed=0,
+                    device=dev)
+    epoch = als_epoch_fn(*out.pop("lays"), MAIN["lam"], gather_bf16=True)
+    sync()
+    reset_launches()
+    t0 = time.time()
+    st = epoch(st)
+    sync()
+    wall256 = time.time() - t0
+    l256 = read_launches()
+    log(f"rank 256, one bf16 ALS-WR epoch (als_epoch_fn on the rank-192 "
+        f"layouts): {wall256:.4f} s; kernel launches {l256}")
+    check(l256["fused_gram"] > 0 and l256["spd_solve tiled"] > 0
+          and l256["row_gather"] == 0, "rank 256: fused_gram's wide body "
+          "and K1's tiled body launched, row_gather not")
+    check(bool(torch.isfinite(st.U).all() and torch.isfinite(st.V).all()),
+          "rank 256: finite factors")
+    check_trash_rows(st, "rank 256")
+    del st, epoch
+    torch.cuda.empty_cache()
     f192 = phase_fold_in(out.pop("state"), tu, ti, tr)
     k1_192 = launches["spd_solve"] + f192["spd_solve"]
     st256 = init_state(MAIN["n_users"], MAIN["n_items"], 256, seed=0,
@@ -1176,8 +1476,15 @@ def phase_rank192(dev, tu, ti, tr, su, si, sr, tmp: str, smi: str) -> dict:
     del st256
     torch.cuda.empty_cache()
     log(f"K1 launches: n = 192 {k1_192} (train() and fold-in), n = 256 "
-        f"{f256['spd_solve']} (fold-in); on {smi}")
-    out.update(k1_n192=k1_192, k1_n256=f256["spd_solve"])
+        f"{l256['spd_solve'] + f256['spd_solve']} (the rank-256 epoch and "
+        f"fold-in); fused_gram's wide body: w 192 "
+        f"{launches['fused_gram'] + out['ooc_launches']['fused_gram']} "
+        f"(train() and train(ooc=True)), w 256 {l256['fused_gram']}; on "
+        f"{smi}")
+    out.update(k1_n192=k1_192, k1_n256=l256["spd_solve"] + f256["spd_solve"],
+               fg_w192=launches["fused_gram"]
+               + out["ooc_launches"]["fused_gram"],
+               fg_w256=l256["fused_gram"])
     return out
 
 
@@ -2866,14 +3173,15 @@ MESH_SAMPLE = 4096  # users whose sharded lists are held to recommend_users
 
 
 def mesh_rank(mesh, tu, ti, tr, su, si, sr, ref_U, ref_V, epochs: int,
-              serve: bool = False, dual: bool = False) -> dict:
+              serve: bool = False, dual: bool = False,
+              profile: bool = True) -> dict:
     """One rank process of the mesh phase (``spawn_ranks`` runs it):
     ALS-WR rank 64, lam 0.05, bf16 gathers, gram_psum, from the main path's
     start (``init_state(seed=0)``, cold rows zeroed as ``train()`` does),
     on the ML-20M arrays (memory-mapped .npy). Per epoch: seconds (device
     synchronized), held-out RMSE, bytes through the collectives and their
-    host time (``Mesh.timed``); epoch 3 on rank 0 under ``torch.profiler``
-    (device time by kernel). With ``serve``: ``sharded_recommend_all``
+    host time (``Mesh.timed``); with ``profile``, epoch 3 on rank 0 under
+    ``torch.profiler`` (device time by kernel). With ``serve``: ``sharded_recommend_all``
     fused (K2 on every rank) and exact, held on rank 0 to the single-GPU
     ``recommend_users`` on the gathered state for MESH_SAMPLE users. With
     ``dual``: one item_sharded epoch from the same start. Every rank's
@@ -2917,7 +3225,7 @@ def mesh_rank(mesh, tu, ti, tr, su, si, sr, ref_U, ref_V, epochs: int,
         b0, c0 = mesh.bytes_moved, mesh.collective_s
         sync()
         t0 = time.time()
-        if ep == 2 and mesh.rank == 0:  # epoch 3, rank 0: device time
+        if ep == 2 and mesh.rank == 0 and profile:  # epoch 3, rank 0
             st, out["dev_ms_epoch3"] = profile_breakdown(
                 lambda: sh.sharded_als_epoch(mesh, st, data, lam,
                                              gather_bf16=True),
@@ -3112,7 +3420,8 @@ def phase_mesh(dev, tu, ti, tr, su, si, sr, lays, main_rmse, tmp: str,
     runs = {}
     for name, world, backend, kw in (
             ("D=1 nccl", 1, "nccl", {}),
-            ("D=2 gloo", 2, "gloo", dict(serve=True, dual=True))):
+            ("D=2 gloo", 2, "gloo", dict(serve=True, dual=True,
+                                         profile=False))):
         t0 = time.time()
         res = spawn_ranks("chip_smoke:mesh_rank", world, backend=backend,
                           device="cuda", arrays=paths,
@@ -3155,10 +3464,12 @@ def phase_mesh(dev, tu, ti, tr, su, si, sr, lays, main_rmse, tmp: str,
                   f"{MESH_FACTOR_TOL} of its norm in the resident blocked "
                   f"run")
         wall = (res["s"][1] + res["s"][3]) / 2
+        dev = (f"epoch 3 profiled; rank 0's device time in epoch 3 "
+               f"{res['dev_ms_epoch3']:.2f} ms = "
+               f"{res['dev_ms_epoch3'] / 1e3 / wall:.3f} of that wall"
+               if "dev_ms_epoch3" in res else "no epoch profiled")
         log(f"mesh {name}: s/epoch, epochs 2 and 4: {res['s'][1]:.4f} "
-            f"{res['s'][3]:.4f} (epoch 3 profiled); rank 0's device time in "
-            f"epoch 3 {res['dev_ms_epoch3']:.2f} ms = "
-            f"{res['dev_ms_epoch3'] / 1e3 / wall:.3f} of that wall; on {smi}")
+            f"{res['s'][3]:.4f} ({dev}); on {smi}")
         for r, (k1, rg, k2, peak, trash, _) in enumerate(res["per_rank"]):
             log(f"mesh {name} rank {r}: K1 {int(k1)}, row_gather {int(rg)}, "
                 f"K2 {int(k2)} launches; peak device memory {int(peak):,} "
@@ -3252,7 +3563,7 @@ OOC_MESH_BYTES = (26_745 * 64 * 64 + 26_745 * 64) * 4
 
 
 def ooc_mesh_rank(mesh, wire, epochs: int, ials: bool = False,
-                  **arrays) -> dict:
+                  profile: bool = True, **arrays) -> dict:
     """One rank process of the "ooc mesh" phase (``spawn_ranks`` runs it)
     on the ML-20M arrays (memory-mapped .npy) and the launcher's wire
     (``wire``: ``split_wire``'s skeleton and the meta; its arrays arrive
@@ -3262,8 +3573,8 @@ def ooc_mesh_rank(mesh, wire, epochs: int, ials: bool = False,
     1. the rank's slice pinned on the card, ALS-WR rank 64, lam 0.05, bf16
        gathers, ``epochs`` epochs from the main path's start: per epoch the
        seconds (device synchronized), the held-out RMSE, bytes and host ms
-       of the collectives (``Mesh.timed``); epoch 3 profiled by kernel on
-       rank 0; launches and peak device memory over the run; the gathered
+       of the collectives (``Mesh.timed``); with ``profile``, epoch 3
+       profiled by kernel on rank 0; launches and peak device memory over the run; the gathered
        factors against the resident blocked run's, trash and cold rows;
     2. two streamed epochs (``feed_sharded_wire``) from the same start,
        bit-equal to the pinned run after epoch 2, and the host bytes they
@@ -3321,7 +3632,7 @@ def ooc_mesh_rank(mesh, wire, epochs: int, ials: bool = False,
         b0, c0 = mesh.bytes_moved, mesh.collective_s
         sync()
         t0 = time.time()
-        if e == 2 and mesh.rank == 0:  # epoch 3, rank 0: device time
+        if e == 2 and mesh.rank == 0 and profile:  # epoch 3, rank 0
             st, out["dev_ms_epoch3"] = profile_breakdown(
                 lambda: ep(st), f"ooc mesh epoch 3, rank 0 of {mesh.world}")
         else:
@@ -3436,7 +3747,7 @@ def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
     runs = {}
     for name, world, backend, kw in (("D=1 nccl", 1, "nccl", {}),
                                      ("D=2 gloo", 2, "gloo",
-                                      {"ials": True})):
+                                      {"ials": True, "profile": False})):
         t0 = time.time()
         # the main path's groups, as the CLI phase's config file gives
         # train()
@@ -3483,11 +3794,13 @@ def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
                   <= MESH_FACTOR_TOL, f"{what}: {side} and its every row "
                   f"within {MESH_FACTOR_TOL} of the resident blocked run's")
         wall = (s[1] + s[3]) / 2
-        dev_ms = res["dev_ms_epoch3"]
+        dev_ms = res.get("dev_ms_epoch3")
+        dev = (f"epoch 3 profiled; rank 0's device time in epoch 3 "
+               f"{dev_ms:.2f} ms = {dev_ms / 1e3 / wall:.3f} of that wall "
+               f"(idle {1 - dev_ms / 1e3 / wall:.3f})"
+               if dev_ms is not None else "no epoch profiled")
         log(f"{what}: s/epoch, epochs 2 and 4: {s[1]:.4f} {s[3]:.4f} "
-            f"(epoch 3 profiled); rank 0's device time in epoch 3 "
-            f"{dev_ms:.2f} ms = {dev_ms / 1e3 / wall:.3f} of that wall "
-            f"(idle {1 - dev_ms / 1e3 / wall:.3f}); streamed s/epoch "
+            f"({dev}); streamed s/epoch "
             f"{[round(x, 4) for x in res['streamed_s']]}; on {smi}")
         for r, row in enumerate(res["per_rank"]):
             (k1, fg, rg, k1t, peak, zero, same, pinned, staged, bmin,
@@ -3917,6 +4230,7 @@ def run(dev):
                      pad_coo(su, si, sr, n_users, n_items, 8192)[:3]) + (
         len(sr),)
     gram = phase_fused_gram(state, dul, dil)
+    gram_w = phase_fused_gram_widths(dul, n_items, smi)
     epoch = als_epoch_fn(dul, dil, lam, gather_bf16=True)
     sync()
 
@@ -4232,6 +4546,18 @@ def run(dev):
          "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
          "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
          "bound_by": gram["bound_by"], "library_ms": None},
+    ] + [
+        # fused_gram's wide body, timed on one user phase at w 192 / 256,
+        # with the launches of the rank-192 train() runs (resident and out
+        # of core) and of the rank-256 epoch
+        {"name": f"fused_gram w{w} (wide body)", "route": "cuda",
+         "source": "ycnr_tpu_torch/csrc/fused_gram.cu",
+         "replaces": "tools/probe_gather.py:207", "launches": n_launch,
+         "max_abs_err": gram_w[w]["max_abs_err"], "ms": gram_w[w]["ms"],
+         "plain_ms": gram_w[w]["plain_ms"],
+         "bound_ms": gram_w[w]["bound_ms"],
+         "bound_by": gram_w[w]["bound_by"], "library_ms": None}
+        for w, n_launch in ((192, wide["fg_w192"]), (256, wide["fg_w256"]))
     ] + [
         # K1's tiled body, with the launches of the rank-128 train() at n
         # 128, of the rank-192 path (train() and fold-in) at 192 and of

@@ -186,23 +186,25 @@ def test_uses_fused_only_for_bf16_als_on_cuda(device, dtype, alpha, bf16,
 
 
 @pytest.mark.parametrize("width,want", [(1, True), (64, True), (128, True),
-                                        (129, False), (192, False),
-                                        (256, False)])
+                                        (129, True), (192, True),
+                                        (256, True), (257, False)])
 def test_uses_fused_only_up_to_fused_gram_width(width, want):
-    """The fused branch only where fused_gram takes the width (MAX_W);
-    above it the phase takes the row gather -> einsum -> K1 route."""
+    """The fused branch only where fused_gram takes the width (MAX_W, 256:
+    the 4-warp body to 128, the wide body above); above it the phase
+    takes the row gather -> einsum -> K1 route."""
     from ycnr_tpu_torch.ops.fused_gram import MAX_W
 
-    assert MAX_W == 128
+    assert MAX_W == 256
     assert tbp.uses_fused("cuda", torch.float32, None, True, width) is want
 
 
 @pytest.mark.parametrize("gather_bf16", [False, True])
 def test_rank_136_epoch_matches_jax(gather_bf16):
-    """Above fused_gram's MAX_W the phase takes the row gather -> einsum ->
-    guarded solve route, bf16 gathers or not; a rank-136 ALS-WR epoch of
-    it equals the JAX package's als_epochs_bucketed (f64 at 1e-9: with
-    bf16 gathers both round the gathered rows alike, then sum in f64)."""
+    """On the CPU the phase takes the row gather -> einsum -> guarded
+    solve route, bf16 gathers or not (on CUDA, rank 136 with bf16 gathers
+    into f32 takes fused_gram's wide body); a rank-136 ALS-WR epoch of it
+    equals the JAX package's als_epochs_bucketed (f64 at 1e-9: with bf16
+    gathers both round the gathered rows alike, then sum in f64)."""
     k = 136
     u, i, r = synthetic_ratings(NU, NI, NNZ, true_rank=4, noise=0.3, seed=5)
     (tu, ti, tr), (su, si, sr) = train_test_split(u, i, r, 0.1, 0)
@@ -212,7 +214,9 @@ def test_rank_136_epoch_matches_jax(gather_bf16):
     jdt, tdt = jnp.float64, torch.float64
     js = jbase.init_state(NU, NI, k, seed=2, dtype=jdt)
     ts = tbase.init_state(NU, NI, k, seed=2, dtype=tdt, device="cpu")
-    assert not tbp.uses_fused("cuda", torch.float32, None, gather_bf16, k)
+    assert not tbp.uses_fused("cpu", tdt, None, gather_bf16, k)
+    assert tbp.uses_fused("cuda", torch.float32, None, gather_bf16,
+                          k) is gather_bf16
     js2, (rj, _) = jbp.als_epochs_bucketed(
         js, jbp.device_bucketed(ul, jdt), jbp.device_bucketed(il, jdt), LAM,
         1, _jtest(test, jdt), gather_bf16=gather_bf16)

@@ -2,8 +2,10 @@
 float64 solve), K2 (its bound, a float64 sum and its exact invariants),
 the row gather and take-along gather (bit equality, the narrow rows of the
 SGD and BPR epochs included), the fused gather -> Gram with and without the
-ridge (its bound, and a float64 sum), and the fixed order of the trainers'
-scatter-adds (one SGD, stream-SGD and BPR epoch twice: the same bits).
+ridge (its bound, and a float64 sum; the wide body, w 129-256, also
+against its mirror, ``tests/fused_gram_wide_mirror.py``), and the fixed
+order of the trainers' scatter-adds (one SGD, stream-SGD and BPR epoch
+twice: the same bits).
 
 Needs a CUDA device: every test skips without one. On a GPU machine, which
 has no JAX, run them without the suite's JAX conftest:
@@ -11,6 +13,8 @@ has no JAX, run them without the suite's JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -311,7 +315,7 @@ def test_take_along_rows_unaligned_views_are_bit_equal(dev, dtype, idx_dtype,
 
 
 @pytest.mark.parametrize("ridge", [False, True])
-@pytest.mark.parametrize("w", [10, 64, 128])
+@pytest.mark.parametrize("w", [10, 64, 128, 129, 144, 192, 250, 256])
 @pytest.mark.parametrize("ne,R", [(300, 32), (40, 600), (4, 5000), (50, 5)])
 def test_fused_gram_within_bound(dev, w, ne, R, ridge):
     rng = np.random.default_rng(R)
@@ -405,7 +409,85 @@ def test_fused_gram_refuses_what_it_does_not_take(dev):
     with pytest.raises(TypeError):
         fg.fused_gram(table, idx, rat)  # f32 table
     with pytest.raises(ValueError):
-        fg.fused_gram(torch.zeros(10, 129, device=dev).bfloat16(), idx, rat)
+        fg.fused_gram(torch.zeros(10, 257, device=dev).bfloat16(), idx, rat)
+
+
+def _wide_inputs(dev, w, ne=40, R=300, n=500, seed=0, idx_dtype=np.int64):
+    rng = np.random.default_rng(seed)
+    base = np.zeros((n + 1, w), np.float32)
+    base[:n] = rng.normal(0, 0.3, (n, w))
+    idx = rng.integers(0, n, (ne, R))
+    cnt = rng.integers(R // 3, R + 1, ne)
+    cnt[-1] = 0  # one all-padding entity
+    idx[np.arange(R)[None, :] >= cnt[:, None]] = n
+    rat = np.where(idx < n, rng.uniform(1, 5, (ne, R)), 0.0)
+    c = torch.as_tensor(cnt, dtype=torch.float32, device=dev)
+    return (torch.as_tensor(base, device=dev).bfloat16(),
+            torch.as_tensor(idx.astype(idx_dtype), device=dev),
+            torch.as_tensor(rat, dtype=torch.float32, device=dev).bfloat16(),
+            0.05 * c + (c == 0))
+
+
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("w", [129, 144, 192, 200, 250, 256])
+def test_fused_gram_wide_matches_its_mirror(dev, w, idx_dtype):
+    """The wide body against its plain-torch mirror
+    (tests/fused_gram_wide_mirror.py) and the plain version: the mirror
+    sums each mma step's 16 products in f32 in another order than the
+    tensor core, so both are held within the plain version's bound (the
+    kernel to the mirror within twice it); A bit-symmetric, padding
+    exact, a second run bit-equal."""
+    from fused_gram_wide_mirror import fused_gram_wide_mirror
+
+    table, it, rt, reg = _wide_inputs(dev, w, seed=w, idx_dtype=idx_dtype)
+    A, b = fg.fused_gram(table, it, rt, reg=reg)
+    A2, b2 = fg.fused_gram(table, it, rt, reg=reg)
+    Am, bm = fused_gram_wide_mirror(table.cpu(), it.cpu(), rt.cpu(),
+                                    reg.cpu())
+    torch.cuda.synchronize()
+    bA, bb = fg.fused_gram_bound(table[it].float(), rt, reg)
+    assert torch.equal(A, A2) and torch.equal(b, b2)
+    assert torch.all((A.cpu() - Am).abs() <= 2 * bA.cpu())
+    assert torch.all((b.cpu() - bm).abs() <= 2 * bb.cpu())
+    Ap, bp = fg.fused_gram_reference(table, it, rt, reg=reg)
+    assert torch.all((A - Ap).abs() <= bA)
+    assert torch.all((b - bp).abs() <= bb)
+    assert torch.equal(A, A.transpose(1, 2))
+    assert torch.equal(A[-1], torch.eye(w, device=dev)) and \
+        torch.all(b[-1] == 0)
+
+
+@pytest.mark.parametrize("w", [192, 256])
+def test_fused_gram_wide_unaligned_table_takes_plain_loads(dev, w):
+    """A table not on a 16-byte boundary goes through the wide body's
+    plain loads: the same bound, symmetry and padding."""
+    table, it, rt, reg = _wide_inputs(dev, w, seed=1)
+    buf = torch.empty(table.numel() + 1, dtype=torch.bfloat16, device=dev)
+    buf[1:].copy_(table.reshape(-1))
+    tab = buf[1:].view(table.shape)
+    assert tab.data_ptr() % 16 != 0
+    A, b = fg.fused_gram(tab, it, rt, reg=reg)
+    Ap, bp = fg.fused_gram_reference(tab, it, rt, reg=reg)
+    torch.cuda.synchronize()
+    bA, bb = fg.fused_gram_bound(tab[it].float(), rt, reg)
+    assert torch.all((A - Ap).abs() <= bA)
+    assert torch.all((b - bp).abs() <= bb)
+    assert torch.equal(A, A.transpose(1, 2))
+    assert torch.equal(A[-1], torch.eye(w, device=dev))
+
+
+def test_fused_gram_wide_long_lists_split_into_parts(dev):
+    """Few entities with long lists at w 192: the wrapper cuts them at the
+    wide body's fill and sums the parts; within F64_REL of float64."""
+    table, it, rt, reg = _wide_inputs(dev, 192, ne=4, R=20_000, n=5000,
+                                      seed=2)
+    assert fg._parts(4, 20_000, fg.fill_blocks(192))[0] > 1
+    A, b = fg.fused_gram(table, it, rt, reg=reg)
+    torch.cuda.synchronize()
+    assert max(fg.fused_gram_f64_error(table, it, rt, reg, A, b)) <= \
+        fg.F64_REL
+    assert torch.equal(A, A.transpose(1, 2))
+    assert torch.equal(A[-1], torch.eye(192, device=dev))
 
 
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])
@@ -556,10 +638,12 @@ def test_serving_asked_for_k2_runs_k2_or_raises(dev):
         assert ids.shape == (len(np.unique(ds.train_u)), 10)
 
 
-def test_rank192_bucketed_epoch_takes_the_einsum_route(dev):
-    """Above fused_gram's MAX_W, bf16 ALS-WR on the card runs row gather ->
-    einsum -> K1 (the tiled body at n = 192), never fused_gram; the epoch
-    agrees with the same epoch on the CPU and keeps the trash rows 0."""
+def _rank192_epochs(dev, fused: bool):
+    """One rank-192 bf16 ALS-WR epoch on the card (the fused branch, or
+    with ``uses_fused`` patched to False the row gather -> einsum -> K1
+    route) and the same epoch on the CPU; the card's launch counts."""
+    from unittest import mock
+
     from ycnr_tpu_torch.models import bucketed_phase as bp
     from ycnr_tpu_torch.models.base import init_state
     from ycnr_tpu_torch.ops.bucketed import build_bucketed
@@ -570,19 +654,49 @@ def test_rank192_bucketed_epoch_takes_the_einsum_route(dev):
     r = rng.uniform(1, 5, 6000).astype(np.float32)
     ul = build_bucketed(u, i, r, nu, ni, 32, k, max_groups=3)
     il = build_bucketed(i, u, r, ni, nu, 32, k, max_groups=3)
-    assert not bp.uses_fused(dev, torch.float32, None, True, k)
-    out = {}
+    assert bp.uses_fused(dev, torch.float32, None, True, k)
+    route = (contextlib.nullcontext() if fused else
+             mock.patch.object(bp, "uses_fused", lambda *a: False))
+    out, counts = {}, {}
     for d in (dev, "cpu"):
         st = init_state(nu, ni, k, seed=3, device=d)
-        epoch = bp.als_epoch_fn(bp.device_bucketed(ul, device=d),
-                                bp.device_bucketed(il, device=d), 0.05,
-                                gather_bf16=True)
-        g0, s0 = fg.launches, sp.launches
-        out[str(d)] = epoch(st)
+        rdt = torch.bfloat16 if fused and d == dev else None
+        epoch = bp.als_epoch_fn(
+            bp.device_bucketed(ul, device=d, rating_dtype=rdt),
+            bp.device_bucketed(il, device=d, rating_dtype=rdt), 0.05,
+            gather_bf16=True)
+        g0, s0, r0 = fg.launches, sp.launches, rg.launches
+        with route:
+            out[str(d)] = epoch(st)
         if d == dev:
             torch.cuda.synchronize()
-            assert fg.launches == g0 and sp.launches > s0
-    a, b = out[str(dev)], out["cpu"]
+            counts = {"fused_gram": fg.launches - g0,
+                      "spd_solve": sp.launches - s0,
+                      "row_gather": rg.launches - r0}
+    return out[str(dev)], out["cpu"], counts
+
+
+def test_rank192_bucketed_epoch_takes_the_einsum_route(dev):
+    """With the route patched back (``uses_fused`` False), bf16 ALS-WR at
+    rank 192 on the card runs row gather -> einsum -> K1 (the tiled body
+    at n = 192), never fused_gram; the epoch agrees with the same epoch on
+    the CPU and keeps the trash rows 0."""
+    a, b, counts = _rank192_epochs(dev, fused=False)
+    assert counts["fused_gram"] == 0 and counts["row_gather"] > 0
+    assert counts["spd_solve"] > 0
+    for x, y in zip(a[:2], b[:2]):
+        assert bool(torch.isfinite(x).all()) and not bool(x[-1].any())
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-3,
+                                   atol=1e-3 * y.abs().max().item())
+
+
+def test_rank192_bucketed_epoch_takes_the_wide_body(dev):
+    """bf16 ALS-WR at rank 192 on the card runs fused_gram's wide body ->
+    K1, no row gather; the epoch agrees with the same epoch on the CPU
+    (the plain route) and keeps the trash rows 0."""
+    a, b, counts = _rank192_epochs(dev, fused=True)
+    assert counts["fused_gram"] > 0 and counts["row_gather"] == 0
+    assert counts["spd_solve"] > 0
     for x, y in zip(a[:2], b[:2]):
         assert bool(torch.isfinite(x).all()) and not bool(x[-1].any())
         np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-3,

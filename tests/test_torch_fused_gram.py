@@ -1,7 +1,8 @@
 """The port's fused gather -> Gram (``ops/fused_gram.py``) against the JAX
 package: T4 (``tools/probe_gather.py:pallas_fused_gram``) in Pallas
 interpret mode, and ``ycnr_tpu.models.bucketed_phase.bucket_normal_eq``
-with bf16 gathers, the function the bucketed ALS epoch runs.
+with bf16 gathers, the function the bucketed ALS epoch runs; at w 64
+(the 4-warp body's width) and at w 192 and 256 (the wide body's).
 
 The two sides sum the same exact bf16 x bf16 products in f32 in other
 orders, so each entry is held to |A - A_jax| <= 2 R 2^-24 (|F|^T |F|) and
@@ -58,9 +59,18 @@ def _port(base, idx, rat):
                          torch.as_tensor(rat).bfloat16())
 
 
-@pytest.mark.parametrize("R,ne", [(32, 64), (200, 12), (1000, 3)])
-def test_fused_gram_matches_bucket_normal_eq(R, ne):
-    base, idx, rat = _inputs(500, 64, ne, R, seed=R)
+def _widths(cases):
+    """Each case at w 64 (its id as before) and at the wide body's w 192
+    and 256."""
+    return [pytest.param(*c, w, id="-".join(map(str, c))
+                         + ("" if w == 64 else f"-w{w}"))
+            for w in (64, 192, 256) for c in cases]
+
+
+@pytest.mark.parametrize("R,ne,w", _widths([(32, 64), (200, 12),
+                                            (1000, 3)]))
+def test_fused_gram_matches_bucket_normal_eq(R, ne, w):
+    base, idx, rat = _inputs(500, w, ne, R, seed=R)
     A, b = _port(base, idx, rat)
     Fg = jnp.asarray(base, jnp.bfloat16)[jnp.asarray(idx)]
     Aj, bj = jbp.bucket_normal_eq(Fg, jnp.asarray(rat), None, jnp.float32,
@@ -75,14 +85,16 @@ def test_fused_gram_matches_bucket_normal_eq(R, ne):
     assert torch.all(A[-1] == 0) and torch.all(b[-1] == 0)
 
 
-@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
-def test_fused_gram_matches_t4(idx_dtype):
+@pytest.mark.parametrize("idx_dtype,w", [
+    pytest.param(dt, w, id=dt.__name__ + ("" if w == 64 else f"-w{w}"))
+    for w in (64, 192, 256) for dt in (np.int32, np.int64)])
+def test_fused_gram_matches_t4(idx_dtype, w):
     probe_path = os.path.join(REPO, "tools", "probe_gather.py")
     spec = importlib.util.spec_from_file_location("tpu_probe_gather",
                                                   probe_path)
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    R, ne, n, w = 32, 32, 300, 64
+    R, ne, n = 32, 32, 300
     base, idx, rat = _inputs(n, w, ne, R, seed=7)
     with pltpu.force_tpu_interpret_mode():
         s = probe.pallas_fused_gram(

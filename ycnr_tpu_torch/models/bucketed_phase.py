@@ -66,10 +66,11 @@ def uses_fused(device, dtype, alpha, gather_bf16: bool, width: int) -> bool:
     """Whether ``phase_bucketed`` runs the fused branch for factors of
     ``dtype`` and rank ``width`` on ``device``: ALS-WR (``alpha`` None)
     with bf16 gathers into f32 factors on CUDA, at a width the fused
-    gather -> Gram kernel takes (``fused_gram.MAX_W``). Its layouts then
-    hold bf16 ratings; every other case reads them in the factors' dtype
-    and runs the row gather, the einsums and K1, as the JAX package's
-    gather -> Gram is an XLA einsum at every width."""
+    gather -> Gram kernel takes (``fused_gram.MAX_W``, 256: its 4-warp
+    body up to 128, its wide body above). Its layouts then hold bf16
+    ratings; every other case (iALS, f32 gathers, w > 256) reads them in
+    the factors' dtype and runs the row gather, the einsums and K1, as the
+    JAX package's gather -> Gram is an XLA einsum at every width."""
     return (torch.device(device).type == "cuda" and alpha is None
             and gather_bf16 and dtype == torch.float32 and width <= MAX_W)
 
@@ -143,9 +144,10 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
     bytes) with Gram sums in E's dtype, ~1e-3 relative on the normal
     equations.
 
-    On CUDA, ALS-WR with bf16 gathers into an f32 E of rank <= 128 (the
-    main path) runs ``bucket_fused_rows``: the fused gather -> Gram kernel
-    with the ridge in its epilogue, then K1; its layouts hold bf16 ratings
+    On CUDA, ALS-WR with bf16 gathers into an f32 E of rank <= 256 (the
+    main path at 64; ranks 129-256 through the kernel's wide body) runs
+    ``bucket_fused_rows``: the fused gather -> Gram kernel with the ridge
+    in its epilogue, then K1; its layouts hold bf16 ratings
     (``uses_fused``).
     Every other case gathers with the row-gather kernel
     (``ops/row_gather.py``) and runs ``bucket_normal_eq`` and

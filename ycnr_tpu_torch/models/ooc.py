@@ -730,13 +730,15 @@ def _block_working_set(g, k: int, gather_isz: int) -> int:
     temps (indices, masks, prefix sums, ratings), plus on the row-gather
     branch the gathered rows (capped by _split_plan) and ~4 copies of the
     [q, k, k] normal equations, on the fused branch the kernel's parts of
-    A, their sum and the solve's copy."""
+    A (split for the body that runs at k, ``fused_gram.fill_blocks``),
+    their sum and the solve's copy."""
     NE, R = int(g.cnt.shape[1]), int(g.R)
     decode = 48 * NE * R * min(_decode_per(NE, R), g.n_blocks)
     s, sr = _split_plan(NE, R, k, gather_isz)
     gathered = (NE // s) * (R // sr) * k * gather_isz \
         + 4 * (NE // s) * k * k * 4
-    parts = fused_gram._parts(NE, R)[0] if R else 1
+    parts = fused_gram._parts(NE, R, fused_gram.fill_blocks(k))[0] if R \
+        else 1
     fused = (parts + 2) * NE * k * k * 4
     return decode + max(gathered, fused)
 

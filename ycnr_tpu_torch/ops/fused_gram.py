@@ -39,6 +39,15 @@ kernel is also held, entry by entry, to a float64 sum of the same products
 The kernel's A is bit-symmetric by construction (it computes the lower
 triangle and mirrors it); a padding entity (only the all-zero trash row)
 comes out exactly A = reg I, b = 0.
+
+Two bodies: w <= 128 (``NARROW_W``) runs the 4-warp body, whose warps
+may split a stage's 16-slot steps and then add up to four partials;
+128 < w <= 256 runs the 8-warp wide body, in which every entry of A and b
+is one warp's chain of ceil(R / 16) steps in slot order, with no adds
+across warps. Both bounds above therefore hold for the wide body for the
+same reason, with three adds to spare, and ``F64_REL`` is held to it on
+the card (``chip_smoke.py``) at w 192, 250 and 256: an entry's error
+comes from the steps along R, whatever the width.
 """
 
 from __future__ import annotations
@@ -49,13 +58,17 @@ import torch
 
 from ycnr_tpu_torch.ops import _build
 
-MAX_W = 128  # this kernel's own width limit (K1 takes n up to 256)
+MAX_W = 256  # the kernel's width limit, K1's too
+NARROW_W = 128  # the widest rows of the 4-warp body; wider: the wide body
 
 # The kernel runs one block per entity. A call with fewer entities than
-# this many blocks (three resident per SM of an H100) cuts each long rating
-# list into parts of at least _MIN_PART slots, one block each, and sums
-# the parts.
+# the body's fill cuts each long rating list into parts of at least
+# _MIN_PART slots, one block each, and sums the parts. The 4-warp body
+# keeps three blocks resident per SM of an H100 (396); the wide body one
+# (~190 registers a thread x 256 threads), so its fill is two waves of
+# 132, the second evening out the first's ragged end.
 _FILL_BLOCKS = 396
+_FILL_BLOCKS_WIDE = 264
 _MIN_PART = 256
 
 launches = 0  # kernel launches since the last reset
@@ -127,10 +140,16 @@ def fused_gram_f64_error(table: torch.Tensor, idx: torch.Tensor,
     return eA.max().item(), eb.max().item()
 
 
-def _parts(ne: int, R: int):
+def fill_blocks(w: int) -> int:
+    """The fill of the body that runs at width w (``_parts``' ``fill``)."""
+    return _FILL_BLOCKS if w <= NARROW_W else _FILL_BLOCKS_WIDE
+
+
+def _parts(ne: int, R: int, fill: int = _FILL_BLOCKS):
     """(parts, slots per part): enough parts of at least _MIN_PART slots
-    for ne * parts to reach _FILL_BLOCKS; the last part may be shorter."""
-    s = max(1, min(-(-_FILL_BLOCKS // ne), R // _MIN_PART))
+    for ne * parts to reach ``fill`` (``fill_blocks(w)``); the last part
+    may be shorter."""
+    s = max(1, min(-(-fill // ne), R // _MIN_PART))
     r_part = -(-R // s)
     return -(-R // r_part), r_part
 
@@ -139,7 +158,7 @@ def fused_gram_cuda(table: torch.Tensor, idx: torch.Tensor,
                     rat: torch.Tensor, reg: Optional[torch.Tensor] = None):
     """Launch the fused kernel on PyTorch's current stream.
 
-    table [n, w] bf16 (w <= 128), idx [NE, R] int32/int64, rat [NE, R]
+    table [n, w] bf16 (w <= 256), idx [NE, R] int32/int64, rat [NE, R]
     bf16, reg [NE] f32 or None -> (A [NE, w, w] f32, b [NE, w] f32).
     """
     global launches
@@ -175,7 +194,7 @@ def fused_gram_cuda(table: torch.Tensor, idx: torch.Tensor,
         return A, torch.zeros(ne, w, dtype=torch.float32, device=dev)
     if n == 0:
         raise IndexError("fused_gram: indices into an empty table")
-    s, r_part = _parts(ne, R)
+    s, r_part = _parts(ne, R, fill_blocks(w))
     A = torch.empty(ne * s, w, w, dtype=torch.float32, device=dev)
     b = torch.empty(ne * s, w, dtype=torch.float32, device=dev)
     lib = _build.load_library()
