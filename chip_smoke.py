@@ -20,11 +20,11 @@ Run from the repository root:  python3 chip_smoke.py
    indices, from the 26,744-row and 480,189-row tables; each timed beside
    its plain version and that one PyTorch call;
 6. the main path as ``bench.py`` runs it: ALS-WR rank 64 on the
-   ML-20M-shaped synthetic set (generated once, while the kernels of item
-   2 compile, into the port's bench cache, ``ycnr_tpu_torch/tools/
-   bench.py``, in a directory of the script's own: the split read back
-   bit-equal to ``train_test_split`` of the set, and read from there, with
-   the layouts cached beside it, by every bench and tool run below),
+   ML-20M-shaped synthetic set (generated once on the host lane, see
+   below, into the port's bench cache, ``ycnr_tpu_torch/tools/bench.py``,
+   in a directory of the script's own: the split read back bit-equal to
+   ``train_test_split`` of the set, and read from there, with the layouts
+   cached beside it, by every bench and tool run below),
    bucketed layout (8 groups), bf16 gathers through the fused gather ->
    Gram kernel with the ridge in its epilogue
    (first held to its bound on the smallest-R and largest-R blocks of both
@@ -32,8 +32,8 @@ Run from the repository root:  python3 chip_smoke.py
    the item factor's shape at w 128, 192, 256 and 250: the 4-warp body's
    widest and the wide body's, each within its bound of the plain version
    and within F64_REL of float64, bit-symmetric, padding exact, a second
-   run bit-equal, timed beside the plain version and the bound), then
-   K1; 4 epochs with held-out RMSE, held to the reference
+   run bit-equal, timed beside the plain version, the bound and the
+   figures of the mma.sync wide body it replaced), then K1; 4 epochs with held-out RMSE, held to the reference
    trajectory and to PR 2's; epoch 3 profiled by kernel;
 7. serving: ``Recommender.precompute_all`` through K2 for every user,
    checked against the exact scorer on a sample, plus single and batch
@@ -43,7 +43,8 @@ Run from the repository root:  python3 chip_smoke.py
    to plain indexing, then the path against the bucketed path with f32
    gathers from the same start, held-out RMSE to 1e-4;
 9. fold-in of 256 users against a float64 solve, no rated item served;
-10. the two gather probes at a reduced size (``take_along_rows``);
+10. the two gather probes at a reduced size (``take_along_rows``; run
+    right after item 5, while the host lane makes the data);
 11. biased SGD at the full width of the ``ml1m-sgd`` preset (synthetic
     ML-1M shape, rank 16, batch 8,192, 20 epochs) through ``train()``,
     batched and stream: one batched epoch against the float64 oracle,
@@ -167,6 +168,12 @@ Run from the repository root:  python3 chip_smoke.py
     process, ``--precompute``: no error); ``quality_calibrated --scale
     ml20m`` for 2 epochs (hit@10 rises for BPR and iALS); ``free -g``.
 
+The host lane (``HostLane``, a process started with the script) makes
+the host-only builds the phases read, while the card runs the earlier
+phases: the main path's data (beside the kernel build and items 3-5), the
+layouts of the bench cache, the out-of-core phases' wires, the mesh
+ranks' sharded data and ``quality_calibrated``'s dataset.
+
 Every path runs with the kernels' launch counts set to 0 just before it,
 and each kernel must have launched on the paths that use it; K1's tiled
 body launches on no rank-64 path. Every failed
@@ -178,11 +185,12 @@ name and power limit (``nvidia-smi``), a JSON line of per-kernel results
 
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
 import json
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -790,6 +798,12 @@ def phase_fused_gram(state, dul, dil) -> dict:
 # widest (for reference) and the wide body's, one of them w % 8 != 0 (its
 # plain loads)
 GRAM_WIDTHS = (128, 192, 256, 250)
+# the wide body this one replaced (8 warps on mma.sync) on the same phase
+# and lists, the log's "was": ms a phase, long lists' ns a slot, short
+# lists' share of their byte bound (NVIDIA H100 80GB HBM3, 700 W)
+MMA_SYNC_GRAM = {192: dict(ms=32.874, long_ns=0.704, short_share=0.641),
+             256: dict(ms=47.576, long_ns=0.934, short_share=0.776),
+             250: dict(ms=128.036)}
 GRAM_CHECK_ENTITIES = 2048  # entities a check's float64 sums take at once
 
 
@@ -881,15 +895,18 @@ def phase_fused_gram_widths(dul, n_items: int, smi: str) -> dict:
                   + len(blocks) * table.numel() * 2)
         bnd = bound_ms(nbytes, slots * (w * (w + 1) + 2 * w), PEAK_BF16)
         body = "4-warp" if w <= NARROW_W else "wide"
+        was = (f" (was {MMA_SYNC_GRAM[w]['ms']:.3f} ms on mma.sync, "
+               f"{bnd[0] / MMA_SYNC_GRAM[w]['ms']:.3f} of the bound)"
+               if w in MMA_SYNC_GRAM else "")
         log(f"fused_gram (ridge) w={w} ({body} body), one user phase "
             f"({len(blocks)} blocks, {slots:,} slots, {ents:,} entities, "
             f"{n_pad:,} padding): within its bound of the plain version "
             f"(largest share {worst_share:.3e}, max abs {worst_abs:.3e}), "
             f"against float64 {worst_rel:.3e} (plain f32 {worst_plain:.3e};"
             f" limit {F64_REL:.3e}), bit-symmetric, padding exact, a second"
-            f" run bit-equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bnd[0]:.3f} ms ({bnd[1]}), {bnd[0] / ms:.3f} of it; on "
-            f"{smi}")
+            f" run bit-equal; kernel {ms:.3f} ms{was}, plain "
+            f"{plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
+            f"{bnd[0] / ms:.3f} of it; on {smi}")
         out[w] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": bnd[0], "bound_by": bnd[1]}
         if w % 64 == 0:
@@ -921,12 +938,16 @@ def gram_split(table, gen, smi: str) -> dict:
                      "bound_ms": bnd[0], "bound_by": bnd[1]}
         del idx, rat
     lg, sh = res["long"], res["short"]
+    old = MMA_SYNC_GRAM.get(w)
+    was = (f" (was {old['long_ns']} ns a slot and {old['short_share']} of "
+           f"the short lists' bound on mma.sync)" if old else "")
     log(f"fused_gram w={w}, where the time goes: long lists (264 x 16,384) "
         f"{lg['ms']:.3f} ms = {lg['ns_slot']:.3f} ns a slot, bound "
-        f"{lg['bound_ms']:.3f} ms ({lg['bound_by']}); short lists (25,000 "
-        f"x 16) {sh['ms']:.3f} ms, bound {sh['bound_ms']:.3f} ms "
-        f"({sh['bound_by']}), {sh['bound_ms'] / sh['ms']:.3f} of it; on "
-        f"{smi}")
+        f"{lg['bound_ms']:.3f} ms ({lg['bound_by']}), "
+        f"{lg['bound_ms'] / lg['ms']:.3f} of it; short lists (25,000 x 16) "
+        f"{sh['ms']:.3f} ms, bound {sh['bound_ms']:.3f} ms "
+        f"({sh['bound_by']}), {sh['bound_ms'] / sh['ms']:.3f} of it{was}; "
+        f"on {smi}")
     return {"split": res}
 
 
@@ -1184,6 +1205,10 @@ ROUTE_RMSE_TOL = 1e-4
 # (NVIDIA H100 80GB HBM3, 700.00 W): device ms by the profiler, s/epoch
 EINSUM_RANK192_DEV_MS = 353.58
 EINSUM_RANK192_S_EPOCH = (0.3584, 0.3753)
+# the same epoch with the mma.sync wide body, device ms by kernel and
+# s/epoch (NVIDIA H100 80GB HBM3, 700 W)
+MMA_SYNC_RANK192 = dict(dev_ms=114.58, fused_gram_ms=67.85, k1_ms=40.65,
+                    s_epoch=(0.1162, 0.1184))
 
 
 def float64_solve(A, b):
@@ -1403,7 +1428,11 @@ def wide_train(dev, rank: int, tu, ti, tr, su, si, sr, tmp: str,
                                       f"a {what} epoch", by_kernel)
     k1_ms = sum(v for k, v in by_kernel.items() if "spd_solve" in k)
     fg_ms = sum(v for k, v in by_kernel.items() if "fused_gram" in k)
-    was = (f" (the einsum route: {EINSUM_RANK192_DEV_MS} ms, "
+    old = MMA_SYNC_RANK192
+    was = (f" (the mma.sync wide body: {old['dev_ms']} ms, fused_gram "
+           f"{old['fused_gram_ms']}, K1 {old['k1_ms']}, "
+           f"{old['s_epoch'][0]}-{old['s_epoch'][1]} s/epoch; the einsum "
+           f"route: {EINSUM_RANK192_DEV_MS} ms, "
            f"{EINSUM_RANK192_S_EPOCH[0]}-{EINSUM_RANK192_S_EPOCH[1]} "
            f"s/epoch)"
            if rank == 192 else "")
@@ -2230,7 +2259,7 @@ def kernel_shares(by_kernel: dict) -> dict:
 
 
 def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
-              smi: str, tmp: str) -> dict:
+              smi: str, tmp: str, built: dict) -> dict:
     """Out-of-core training on the main path's arrays (ALS-WR rank 64, lam
     0.05, 8 groups, bf16 gathers): the packed wire of both views; 4 epochs
     through train(ooc=True) with the wire pinned ("device", RECT) and
@@ -2243,7 +2272,10 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
     the classic OOC run from the same init; rmse_wire against rmse_padded;
     stream SGD (ml1m-sgd's hyperparameters, 2 epochs, one batch order) in
     its four forms; and python -m ycnr_tpu_torch train --ooc on the CLI
-    phase's store against the resident train()."""
+    phase's store against the resident train(). The host builds (the
+    packed wires, the wire-order plans and wires, the stream-SGD data and
+    its compact wire) come from the host lane (``built``, a pickle of
+    ``host_lane``'s "ooc" step, with their seconds)."""
     import dataclasses
     import importlib
 
@@ -2255,13 +2287,10 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
                                             zero_cold_entities)
     from ycnr_tpu_torch.models.bucketed_phase import (device_bucketed,
                                                       ials_epoch_fn)
-    from ycnr_tpu_torch.models.sgd_stream import StreamSGD, \
-        prepare_stream_sgd
+    from ycnr_tpu_torch.models.sgd_stream import StreamSGD
     from ycnr_tpu_torch.ops.layout import pad_coo
-    from ycnr_tpu_torch.ops.packed import (build_packed, packed_stats,
-                                           rect_from_packed,
-                                           wire_storage_plan)
-    from ycnr_tpu_torch.ops.sgd_wire import compact_from_stream, put_compact
+    from ycnr_tpu_torch.ops.packed import packed_stats, rect_from_packed
+    from ycnr_tpu_torch.ops.sgd_wire import put_compact
     from ycnr_tpu_torch.train.loop import train
 
     loop = importlib.import_module("ycnr_tpu_torch.train.loop")
@@ -2276,19 +2305,17 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
             out["launches"][k] += launches[k]
 
     # ---- 1. the wire ------------------------------------------------------
-    t0 = time.time()
-    upk = build_packed(tu, ti, tr, n_users, n_items, rank, max_groups=g)
-    t_u = time.time() - t0
-    t0 = time.time()
-    ipk = build_packed(ti, tu, tr, n_items, n_users, rank, max_groups=g)
-    t_i = time.time() - t0
+    with open(built["path"], "rb") as f:
+        b = pickle.load(f)
+    upk, ipk, t_u, t_i = b["upk"], b["ipk"], b["t_u"], b["t_i"]
     t0 = time.time()
     rect = sum(ooc.wire_nbytes([rect_from_packed(x)]) for x in upk + ipk)
     t_rect = time.time() - t0
     su_, si_ = packed_stats(upk, nnz), packed_stats(ipk, nnz)
     wire = ooc.wire_nbytes(upk, ipk)
     log(f"ooc build: build_packed users {t_u:.1f} s, items {t_i:.1f} s "
-        f"(host); wire {su_['wire_bytes']:,} + {si_['wire_bytes']:,} bytes "
+        f"(host lane); wire {su_['wire_bytes']:,} + "
+        f"{si_['wire_bytes']:,} bytes "
         f"= {su_['wire_bytes_per_rating']:.3f} + "
         f"{si_['wire_bytes_per_rating']:.3f} B/rating ({su_['rating_kind']}"
         f" ratings, fill {su_['fill']:.3f} / {si_['fill']:.3f}); RECT "
@@ -2496,16 +2523,7 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
     del got, want
 
     # ---- 4. wire-order storage against the classic OOC run ------------------
-    t0 = time.time()
-    up = wire_storage_plan(np.bincount(tu, minlength=n_users),
-                           rank_hint=rank, max_groups=g)
-    ip = wire_storage_plan(np.bincount(ti, minlength=n_items),
-                           rank_hint=rank, max_groups=g)
-    wu = build_packed(tu, ti, tr, n_users, n_items, rank, max_groups=g,
-                      other_plan=ip)
-    wi = build_packed(ti, tu, tr, n_items, n_users, rank, max_groups=g,
-                      other_plan=up)
-    t_ws = time.time() - t0
+    up, ip, wu, wi, t_ws = (b[k] for k in ("up", "ip", "wu", "wi", "t_ws"))
 
     def storage():
         U = ooc.wire_storage_init(up, rank, seed=0, device=dev)
@@ -2531,7 +2549,7 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
         V=torch.cat([V[perm_i], classic.V[-1:]]))
     r_ws = float(rmse_padded(ws_state, *test_coo))
     r_cl = float(rmse_padded(classic, *test_coo))
-    log(f"ooc wire-order storage: plans + builds {t_ws:.1f} s (host); 2 "
+    log(f"ooc wire-order storage: plans + builds {t_ws:.1f} s (host lane); 2 "
         f"epochs against the classic OOC run from the same init: max "
         f"|dU| {du_max:.3e}, |dV| {dv_max:.3e} (max |U| {scale:.3f}); "
         f"held-out rmse {r_ws:.6f} vs {r_cl:.6f}; launches {m['launches']}")
@@ -2554,13 +2572,9 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
 
     # ---- 5. stream SGD, four forms ------------------------------------------
     p = get_preset("ml1m-sgd").sgd
-    t0 = time.time()
-    host, _ = prepare_stream_sgd(tu, ti, tr, p.batch_size, n_users, n_items,
-                                 seed=0, grad_mode="capped", device=False)
-    t_prep = time.time() - t0
-    t0 = time.time()
-    comp = compact_from_stream(host, n_items)
-    t_comp = time.time() - t0
+    host, comp, t_prep, t_comp = (b[k] for k in ("stream", "compact",
+                                                 "t_prep", "t_comp"))
+    del b
     flat = host._replace(**{
         k: torch.as_tensor(getattr(host, k), device=dev).long()
         if k in ("ul", "ib") else torch.as_tensor(getattr(host, k),
@@ -2600,7 +2614,8 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
               f"bit-equal to the flat resident epochs")
     log(f"ooc stream SGD: {nb} batches of {p.batch_size} (rank {p.rank}, "
         f"capped); prepare_stream_sgd {t_prep:.1f} s, compact_from_stream "
-        f"{t_comp:.1f} s (host); compact wire {comp.nbytes / host.n_real:.2f}"
+        f"{t_comp:.1f} s (host lane); compact wire "
+        f"{comp.nbytes / host.n_real:.2f}"
         f" B/rating against the flat stream's {flat_b / host.n_real:.2f}; "
         f"the four forms bit-equal after 2 epochs; on {smi}")
     out["sgd"] = {k: v[1] for k, v in forms.items()}
@@ -3173,12 +3188,15 @@ MESH_SAMPLE = 4096  # users whose sharded lists are held to recommend_users
 
 
 def mesh_rank(mesh, tu, ti, tr, su, si, sr, ref_U, ref_V, epochs: int,
-              serve: bool = False, dual: bool = False,
+              host_data: str, serve: bool = False, dual: str = "",
               profile: bool = True) -> dict:
     """One rank process of the mesh phase (``spawn_ranks`` runs it):
     ALS-WR rank 64, lam 0.05, bf16 gathers, gram_psum, from the main path's
     start (``init_state(seed=0)``, cold rows zeroed as ``train()`` does),
-    on the ML-20M arrays (memory-mapped .npy). Per epoch: seconds (device
+    on the ML-20M arrays (memory-mapped .npy) and the sharded data that
+    ``build_sharded_data`` made for this world on the host lane
+    (``host_data``, a pickle; ``dual``: ``build_dual_sharded_data``'s).
+    Per epoch: seconds (device
     synchronized), held-out RMSE, bytes through the collectives and their
     host time (``Mesh.timed``); with ``profile``, epoch 3 on rank 0 under
     ``torch.profiler`` (device time by kernel). With ``serve``: ``sharded_recommend_all``
@@ -3204,11 +3222,9 @@ def mesh_rank(mesh, tu, ti, tr, su, si, sr, ref_U, ref_V, epochs: int,
     n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
                                                      "rank", "lam"))
     t0 = time.time()
-    host, meta = sh.build_sharded_data(
-        tu, ti, tr, n_users, n_items, mesh.world, chunk_len=32,
-        rank_hint=rank, test_u=su, test_i=si, test_r=sr,
-        host_user_layout=serve, algo="als")
-    out["build_s"] = time.time() - t0
+    with open(host_data, "rb") as f:  # build_sharded_data's, made on the
+        host, meta, out["build_s"] = pickle.load(f)  # host lane
+    out["load_s"] = time.time() - t0
     data = sh.put_shard(host, mesh)
     del host
 
@@ -3262,11 +3278,8 @@ def mesh_rank(mesh, tu, ti, tr, su, si, sr, ref_U, ref_V, epochs: int,
     if dual:
         from ycnr_tpu_torch.parallel import dual as du
 
-        t0 = time.time()
-        host, dmeta = du.build_dual_sharded_data(
-            tu, ti, tr, n_users, n_items, mesh.world, chunk_len=32,
-            rank_hint=rank, test_u=su, test_i=si, test_r=sr)
-        out["dual_build_s"] = time.time() - t0
+        with open(dual, "rb") as f:  # build_dual_sharded_data's
+            host, dmeta, out["dual_build_s"] = pickle.load(f)
         ddata = sh.put_shard(host, mesh)
         del host
         dst = du.dual_scatter_state(start(), dmeta, mesh)
@@ -3380,13 +3393,14 @@ def mesh_serve_check(g, tu, ti, uf, idf, ue, ide, sce) -> dict:
 
 
 def phase_mesh(dev, tu, ti, tr, su, si, sr, lays, main_rmse, tmp: str,
-               smi: str) -> dict:
+               smi: str, built: dict) -> dict:
     """Sharded ALS-WR (parallel/) on the ML-20M arrays in real rank
     processes started by the port's launcher, the arrays written once as
     one .npy set: D = 1 over NCCL on cuda:0, D = 2 over gloo with both
     ranks on cuda:0 (then the serving pass with K2 on every rank and one
     item_sharded epoch), and NCCL asked for two ranks on one card, which
-    must raise the port's error and run nothing."""
+    must raise the port's error and run nothing. ``built``: the host
+    lane's sharded data for each world (``host_lane``)."""
     from ycnr_tpu_torch.config import MeshConfig, get_preset
     from ycnr_tpu_torch.data.dataset import Dataset
     from ycnr_tpu_torch.parallel.mesh import spawn_ranks
@@ -3420,20 +3434,21 @@ def phase_mesh(dev, tu, ti, tr, su, si, sr, lays, main_rmse, tmp: str,
     runs = {}
     for name, world, backend, kw in (
             ("D=1 nccl", 1, "nccl", {}),
-            ("D=2 gloo", 2, "gloo", dict(serve=True, dual=True,
+            ("D=2 gloo", 2, "gloo", dict(serve=True, dual=built["dual"],
                                          profile=False))):
         t0 = time.time()
         res = spawn_ranks("chip_smoke:mesh_rank", world, backend=backend,
                           device="cuda", arrays=paths,
-                          kwargs=dict(epochs=MESH_EPOCHS, **kw))
+                          kwargs=dict(epochs=MESH_EPOCHS,
+                                      host_data=built[str(world)], **kw))
         res["wall_s"] = time.time() - t0
         runs[name] = res
         check(res["collectives"]["ok"], f"mesh {name}: all-reduce, "
               f"all-gather and broadcast of CUDA tensors")
         log(f"mesh {name}: {world} rank process(es), {res['wall_s']:.1f} s "
-            f"wall (host build {res['build_s']:.1f} s on each rank); "
-            f"collectives on {res['collectives']['device']} over "
-            f"{res['backend']}")
+            f"wall (host build {res['build_s']:.1f} s on the host lane, "
+            f"loaded in {res['load_s']:.1f} s on each rank); collectives "
+            f"on {res['collectives']['device']} over {res['backend']}")
         for ep, (r, want, m, b) in enumerate(zip(
                 res["rmse"], ANCHOR_RMSE, main_rmse, ref["rmse"])):
             log(f"mesh {name} epoch {ep + 1}: {res['s'][ep]:.4f} s, "
@@ -3495,7 +3510,7 @@ def phase_mesh(dev, tu, ti, tr, su, si, sr, lays, main_rmse, tmp: str,
         f"{d['rmse']:.6f} (gram_psum {two['rmse'][0]:.6f}); "
         f"{d['bytes']:,} bytes through collectives, "
         f"{1e3 * d['coll_s']:.1f} ms in them; host build "
-        f"{two['dual_build_s']:.1f} s")
+        f"{two['dual_build_s']:.1f} s on the host lane")
     check(abs(d["rmse"] - two["rmse"][0]) <= MESH_RMSE_TOL,
           "mesh item_sharded epoch 1 within the tolerance of gram_psum's")
     check(d["trash"], "mesh item_sharded: trash rows exactly 0")
@@ -3511,49 +3526,76 @@ def phase_mesh(dev, tu, ti, tr, su, si, sr, lays, main_rmse, tmp: str,
 
 
 def phase_mesh_cli(cli: dict, main_rmse, tmp: str, smi: str,
-                   ooc_pinned=None):
+                   ooc_pinned) -> float:
     """python -m ycnr_tpu_torch train --preset ml20m-als --shards 2
-    --dist-backend gloo --epochs 2, in process, on the CLI phase's store
-    and split: two rank processes on cuda:0, metrics with shards=2, the
-    trajectory of the resident main path. With ``ooc_pinned`` (rank 0's
-    pinned wire bytes in the ooc mesh phase) also --ooc: ooc=true on every
-    line and one ``ooc_residency`` event with those bytes."""
-    import io
-
-    from ycnr_tpu_torch.cli import main as cli_main
-
-    ooc = ooc_pinned is not None
-    flag = ["--ooc"] if ooc else []
-    what = "train " + " ".join(flag + ["--shards", "2"])
-    out = os.path.join(tmp, "ooc_mesh_runs" if ooc else "mesh_runs")
-    buf = io.StringIO()
+    --dist-backend gloo --epochs 2 on the CLI phase's store and split, and
+    the same with --ooc, as two command-line processes run at once (each
+    starts two rank processes on cuda:0): metrics with shards=2, the
+    trajectory of the resident main path; with --ooc also ooc=true on every
+    line and one ``ooc_residency`` event with ``ooc_pinned`` (rank 0's
+    pinned wire bytes in the ooc mesh phase). Returns the wall of the
+    pair."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    runs = []
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
-        cli_main(["train", "--preset", "ml20m-als", "--config",
-                  cli["cfg_file"], "--store", cli["store"], "--epochs", "2",
-                  *flag, "--shards", "2", "--dist-backend", "gloo", "--out",
-                  out])
-    wall = time.time() - t0
-    last = json.loads(buf.getvalue().strip().splitlines()[-1])
-    events = read_events(os.path.join(out, "ml20m-als"))
-    ev = [e for e in events if "rmse_test" in e]
-    check(last["epochs"] == 2 and [e["shards"] for e in ev] == [2, 2]
-          and all(e.get("ooc", False) == ooc for e in ev),
-          f"cli {what}: two epochs, shards=2 (ooc={ooc}) on every line")
-    if ooc:
-        rev = [e for e in events if e.get("event") == "ooc_residency"]
-        check([(e["mesh_shards"], e["hbm_pinned_bytes"], e["streamed_bytes"])
-               for e in rev] == [(2, int(ooc_pinned), 0)],
-              f"cli {what}: one ooc_residency event with rank 0's pinned "
-              f"wire bytes")
-    for e, m in zip(ev, main_rmse):
-        check(abs(e["rmse_test"] - m) <= MESH_RMSE_TOL,
-              f"cli {what} epoch {e['epoch']}: rmse within "
-              f"{MESH_RMSE_TOL} of the resident run")
-    log(f"cli {what} --dist-backend gloo: {wall:.1f} s wall; "
-        f"rmse {[e['rmse_test'] for e in ev]}, s/epoch "
-        f"{[e['epoch_s'] for e in ev]}; on {smi}")
-    return wall
+    for ooc in (False, True):
+        flag = ["--ooc"] if ooc else []
+        out = os.path.join(tmp, "ooc_mesh_runs" if ooc else "mesh_runs")
+        stdout = open(os.path.join(tmp, f"cli_shards_ooc{int(ooc)}.out"),
+                      "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ycnr_tpu_torch", "train", "--preset",
+             "ml20m-als", "--config", cli["cfg_file"], "--store",
+             cli["store"], "--epochs", "2", *flag, "--shards", "2",
+             "--dist-backend", "gloo", "--out", out],
+            cwd=here, env=env, stdout=stdout, stderr=subprocess.STDOUT)
+        runs.append((ooc, flag, out, stdout, proc))
+    try:
+        for ooc, flag, out, stdout, proc in runs:
+            rc = proc.wait(timeout=600)
+            wall = time.time() - t0
+            stdout.seek(0)
+            text = stdout.read()
+            what = "train " + " ".join(flag + ["--shards", "2"])
+            check(rc == 0, f"cli {what}: exit code {rc}; its output ends "
+                  f"{text[-2000:]!r}")
+            # the command's summary: its last JSON line with "epochs" (rank
+            # 0 writes to the same output)
+            summary = [ln for ln in text.splitlines()
+                       if ln.startswith("{") and '"epochs"' in ln]
+            check(bool(summary), f"cli {what}: a summary line")
+            last = json.loads(summary[-1])
+            events = read_events(os.path.join(out, "ml20m-als"))
+            ev = [e for e in events if "rmse_test" in e]
+            check(last["epochs"] == 2 and [e["shards"] for e in ev] == [2, 2]
+                  and all(e.get("ooc", False) == ooc for e in ev),
+                  f"cli {what}: two epochs, shards=2 (ooc={ooc}) on every "
+                  f"line")
+            if ooc:
+                rev = [e for e in events if e.get("event") == "ooc_residency"]
+                check([(e["mesh_shards"], e["hbm_pinned_bytes"],
+                        e["streamed_bytes"]) for e in rev]
+                      == [(2, int(ooc_pinned), 0)],
+                      f"cli {what}: one ooc_residency event with rank 0's "
+                      f"pinned wire bytes")
+            for e, m in zip(ev, main_rmse):
+                check(abs(e["rmse_test"] - m) <= MESH_RMSE_TOL,
+                      f"cli {what} epoch {e['epoch']}: rmse within "
+                      f"{MESH_RMSE_TOL} of the resident run")
+            log(f"cli {what} --dist-backend gloo (a process, beside the "
+                f"other): {wall:.1f} s wall; rmse "
+                f"{[e['rmse_test'] for e in ev]}, s/epoch "
+                f"{[e['epoch_s'] for e in ev]}; on {smi}")
+    finally:
+        for _, _, _, stdout, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            stdout.close()
+    return time.time() - t0
 
 
 # ---- out of core on the mesh (parallel/ooc_mesh.py) ------------------------
@@ -3725,20 +3767,17 @@ def ials_reference(dev, tu, ti, lays, tmp: str) -> dict:
 
 
 def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
-                   tmp: str, smi: str) -> dict:
+                   tmp: str, smi: str, wires: dict) -> dict:
     """Out of core on the mesh (``parallel/ooc_mesh.py``) on the main
     path's arrays, in real rank processes of the port's launcher (the mesh
-    phase's .npy set; the launcher builds each wire once and adds its
-    arrays to the set): D = 1 over NCCL and D = 2 over gloo on cuda:0
+    phase's .npy set; each wire is built once on the launcher's host lane,
+    ``wires``, and its arrays added to the set): D = 1 over NCCL and D = 2
+    over gloo on cuda:0
     (``ooc_mesh_rank``; the iALS epoch at D = 2), then ``train --ooc
     --shards 2 --dist-backend gloo --epochs 2`` from the CLI phase's
     store."""
     from ycnr_tpu_torch.parallel.mesh import spawn_ranks
-    from ycnr_tpu_torch.parallel.ooc_mesh import (build_sharded_wire,
-                                                  split_wire)
 
-    n_users, n_items, rank = (MAIN[k] for k in ("n_users", "n_items",
-                                                "rank"))
     t0 = time.time()
     paths = dict(mesh["paths"], **ials_reference(dev, tu, ti, lays, tmp))
     log(f"ooc mesh: resident blocked iALS epoch for the reference in "
@@ -3748,24 +3787,18 @@ def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
     for name, world, backend, kw in (("D=1 nccl", 1, "nccl", {}),
                                      ("D=2 gloo", 2, "gloo",
                                       {"ials": True, "profile": False})):
-        t0 = time.time()
-        # the main path's groups, as the CLI phase's config file gives
-        # train()
-        sw, meta = build_sharded_wire(tu, ti, tr, n_users, n_items, world,
-                                      rank_hint=rank,
-                                      max_groups=MAIN["groups"])
-        skel, leaves = split_wire(sw)
-        build_s = time.time() - t0
+        with open(wires[str(world)], "rb") as f:
+            skel, meta, leaves, build_s = pickle.load(f)
         t0 = time.time()
         res = spawn_ranks(
             "chip_smoke:ooc_mesh_rank", world, backend=backend,
             device="cuda", arrays=dict(paths, **leaves),
             kwargs=dict(wire=(skel, meta), epochs=MESH_EPOCHS, **kw))
         res["wall_s"] = time.time() - t0
-        del sw, leaves
         runs[name] = res
         what = f"ooc mesh {name}"
-        log(f"{what}: wire built once in the launcher in {build_s:.1f} s; "
+        log(f"{what}: wire built once on the launcher's host lane in "
+            f"{build_s:.1f} s; "
             f"{world} rank process(es), {res['wall_s']:.1f} s wall; "
             f"collectives over {res['backend']}")
         s = res["s"]
@@ -3868,6 +3901,177 @@ SOAK_S = 8  # the soak's duration (its default is 60)
 TOOL_EPOCHS = 2  # epochs of the in-process runs and tools (one before the
 #                  first timed epoch; RMSE can be seen to fall)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "steady_16g_s"}
+
+
+# ---- the host lane: host-only builds beside the card's phases -----------
+
+def host_lane(out: str):
+    """The host builds that later phases read, made in a process of their
+    own (``HostLane``) while the main process runs the card's phases: the
+    main path's arrays (``main_data``: generated, split, written into the
+    bench cache and read back bit-equal), the bucketed and then the blocked
+    layouts of the bench cache, the out-of-core phase's packed wires,
+    wire-order plans and wires and stream-SGD data (``phase_ooc``), the
+    mesh ranks' sharded data (``build_sharded_data`` for D = 1 and D = 2,
+    ``build_dual_sharded_data`` for D = 2, as each rank would build it),
+    the out-of-core mesh's wires (``build_sharded_wire`` for D = 1 and
+    D = 2) and ``quality_calibrated``'s dataset (``cached_dataset``, into
+    the bench cache). Each step ends with a marker file in ``out``;
+    nothing here touches the card. A failed check ends the process with
+    an error, which ``HostLane.wait`` raises."""
+    from ycnr_tpu_torch.config import get_preset
+    from ycnr_tpu_torch.models.sgd_stream import prepare_stream_sgd
+    from ycnr_tpu_torch.ops.packed import build_packed, wire_storage_plan
+    from ycnr_tpu_torch.ops.sgd_wire import compact_from_stream
+    from ycnr_tpu_torch.parallel import dual as du
+    from ycnr_tpu_torch.parallel import shard as sh
+    from ycnr_tpu_torch.parallel.ooc_mesh import (build_sharded_wire,
+                                                  split_wire)
+    from ycnr_tpu_torch.tools import bench as tbench
+    from ycnr_tpu_torch.tools import quality_calibrated
+
+    def done(step: str, info: dict):
+        path = os.path.join(out, f"{step}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(info, f)
+        os.replace(path + ".tmp", path)
+
+    def dump(name: str, obj) -> str:
+        path = os.path.join(out, name)
+        with open(path, "wb") as f:
+            pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+        return path
+
+    n_users, n_items, rank = (MAIN[k] for k in ("n_users", "n_items",
+                                                "rank"))
+    (u, i, r), ((tu, ti, tr), (su, si, sr)) = main_data()
+    for k, a in dict(u=u, i=i, r=r).items():
+        np.save(os.path.join(out, f"{k}.npy"), a)
+    done("data", {})
+    del u, i, r
+    data_tag = tbench.coo_tag(n_users, n_items, MAIN["n_ratings"], 0)
+    for kind in ("bucketed", "blocked"):
+        t0 = time.time()
+        tbench.cached_layouts(tu, ti, tr, n_users, n_items, 32, rank, kind,
+                              MAIN["groups"], data_tag)
+        done(kind, {"s": time.time() - t0})
+    # the out-of-core phase's host builds, timed as it would time them
+    g = MAIN["groups"]
+    b = {}
+    t0 = time.time()
+    b["upk"] = build_packed(tu, ti, tr, n_users, n_items, rank, max_groups=g)
+    b["t_u"] = time.time() - t0
+    t0 = time.time()
+    b["ipk"] = build_packed(ti, tu, tr, n_items, n_users, rank, max_groups=g)
+    b["t_i"] = time.time() - t0
+    t0 = time.time()
+    b["up"] = up = wire_storage_plan(np.bincount(tu, minlength=n_users),
+                                     rank_hint=rank, max_groups=g)
+    b["ip"] = ip = wire_storage_plan(np.bincount(ti, minlength=n_items),
+                                     rank_hint=rank, max_groups=g)
+    b["wu"] = build_packed(tu, ti, tr, n_users, n_items, rank, max_groups=g,
+                           other_plan=ip)
+    b["wi"] = build_packed(ti, tu, tr, n_items, n_users, rank, max_groups=g,
+                           other_plan=up)
+    b["t_ws"] = time.time() - t0
+    t0 = time.time()
+    b["stream"], _ = prepare_stream_sgd(
+        tu, ti, tr, get_preset("ml1m-sgd").sgd.batch_size, n_users, n_items,
+        seed=0, grad_mode="capped", device=False)
+    b["t_prep"] = time.time() - t0
+    t0 = time.time()
+    b["compact"] = compact_from_stream(b["stream"], n_items)
+    b["t_comp"] = time.time() - t0
+    done("ooc", {"path": dump("ooc.pkl", b)})
+    del b, up, ip
+    mesh = {}
+    for world, serve in ((1, False), (2, True)):
+        t0 = time.time()
+        host, meta = sh.build_sharded_data(
+            tu, ti, tr, n_users, n_items, world, chunk_len=32,
+            rank_hint=rank, test_u=su, test_i=si, test_r=sr,
+            host_user_layout=serve, algo="als")
+        mesh[world] = dump(f"mesh_d{world}.pkl",
+                           (host, meta, time.time() - t0))
+        del host, meta
+    t0 = time.time()
+    host, dmeta = du.build_dual_sharded_data(
+        tu, ti, tr, n_users, n_items, 2, chunk_len=32, rank_hint=rank,
+        test_u=su, test_i=si, test_r=sr)
+    mesh["dual"] = dump("mesh_dual_d2.pkl", (host, dmeta, time.time() - t0))
+    del host, dmeta
+    done("mesh", mesh)
+    wires = {}
+    for world in (1, 2):
+        t0 = time.time()
+        # the main path's groups, as the CLI phase's config file gives
+        # train()
+        sw, meta = build_sharded_wire(tu, ti, tr, n_users, n_items, world,
+                                      rank_hint=rank,
+                                      max_groups=MAIN["groups"])
+        skel, leaves = split_wire(sw)
+        build_s = time.time() - t0
+        paths = {}
+        for k, a in leaves.items():
+            paths[k] = os.path.join(out, f"wire_d{world}_{k}.npy")
+            np.save(paths[k], np.ascontiguousarray(a))
+        wires[world] = dump(f"wire_d{world}.pkl",
+                            (skel, meta, paths, build_s))
+        del sw, leaves
+    done("ooc_mesh", wires)
+    # quality_calibrated's dataset, into the bench cache its run reads
+    t0 = time.time()
+    tbench.cached_dataset(quality_calibrated.data_config(), 32)
+    done("quality", {"s": time.time() - t0})
+
+
+class HostLane:
+    """``host_lane`` in a process started now (``python -c``, from this
+    script's directory, the bench cache's environment inherited). ``wait``
+    blocks until a step's marker is there and logs the lane's new lines;
+    ``close`` ends the process if it still runs and removes its files."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="ycnr_lane_")
+        self.log_path = os.path.join(self.dir, "lane.log")
+        self._log = open(self.log_path, "w")
+        self._seen = 0
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.host_lane({self.dir!r})"],
+            cwd=here, stdout=self._log, stderr=subprocess.STDOUT)
+
+    def _relay(self):
+        with open(self.log_path) as f:
+            lines = f.read().splitlines()
+        for line in lines[self._seen:]:
+            log(f"host lane: {line}")
+        self._seen = len(lines)
+
+    def wait(self, step: str) -> dict:
+        path = os.path.join(self.dir, f"{step}.json")
+        t0 = time.time()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None:
+                self._relay()
+                raise RuntimeError(f"the host lane ended with code "
+                                   f"{self.proc.returncode} before step "
+                                   f"{step!r}")
+            time.sleep(0.2)
+        self._relay()
+        with open(path) as f:
+            info = json.load(f)
+        log(f"host lane: step {step!r} ready (waited "
+            f"{time.time() - t0:.1f} s)")
+        return info
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def main_data():
@@ -4055,7 +4259,8 @@ def phase_bench(dev, main_rmse, smi: str) -> dict:
             "inproc": inproc}
 
 
-def phase_tools(dev, main_rmse, cli: dict, smi: str, tmp: str) -> dict:
+def phase_tools(dev, main_rmse, cli: dict, smi: str, tmp: str,
+                lane: "HostLane") -> dict:
     """"tools": the measuring tools of ``ycnr_tpu_torch/tools/`` in
     process at the ML-20M width (their JSON lines into this log, their
     launches into the kernels line): ``bench_ooc --scale ml20m --compare``
@@ -4067,6 +4272,7 @@ def phase_tools(dev, main_rmse, cli: dict, smi: str, tmp: str) -> dict:
     for SOAK_S seconds (no error, no epoch going back on a connection);
     ``loadgen`` against the CLI phase's store and checkpoint, its server a
     process of its own (no error); ``quality_calibrated --scale ml20m``
+    (its dataset from the bench cache, made on the host ``lane``)
     (hit@10 rises for BPR and iALS). Depth cut to TOOL_EPOCHS epochs."""
     import io
 
@@ -4141,6 +4347,7 @@ def phase_tools(dev, main_rmse, cli: dict, smi: str, tmp: str) -> dict:
                                      cli["ckpt"], "--serve-arg=--precompute"])
     check(r["errors"] == 0 and r["requests"] == 12_800,
           "loadgen: every request answered, no error")
+    lane.wait("quality")  # its dataset, in the bench cache
     r, _ = tool("quality_calibrated", quality_calibrated,
                 ["--scale", "ml20m", "--epochs", str(TOOL_EPOCHS), "--out",
                  os.path.join(tmp, "quality")])
@@ -4166,6 +4373,27 @@ def main():
 
 def run(dev):
     import ycnr_tpu_torch
+
+    ycnr_tpu_torch.full_precision_matmul()
+    name = torch.cuda.get_device_name(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+    log(f"device: {name} x {torch.cuda.device_count()}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"nvidia-smi: {smi}")
+    # the host lane makes the main path's data and the later phases' host
+    # builds in a process of its own while the kernels build (nvcc) and the
+    # kernel phases that need no data run
+    lane = HostLane()
+    try:
+        run_phases(dev, name, smi, lane)
+    finally:
+        lane.close()
+
+
+def run_phases(dev, name: str, smi: str, lane: "HostLane"):
     from ycnr_tpu_torch.eval.recommend import (_topn_blocks, bits_tensor,
                                                build_rated_bits,
                                                recommend_all)
@@ -4179,28 +4407,10 @@ def run(dev):
     from ycnr_tpu_torch.ops.layout import build_blocked_csr, pad_coo
     from ycnr_tpu_torch.tools import bench as tbench
 
-    ycnr_tpu_torch.full_precision_matmul()
-    name = torch.cuda.get_device_name(dev)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip()
-    log(f"device: {name} x {torch.cuda.device_count()}; torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda}")
-    log(f"nvidia-smi: {smi}")
-    # the nvcc processes beside the main path's data on the host; no timed
-    # phase runs until both are done
-    def build():
-        t0 = time.time()
-        _build.load_library()
-        return time.time() - t0
-
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        built = pool.submit(build)
-        (u, i, r), ((tu, ti, tr), (su, si, sr)) = main_data()
-        log(f"build: kernels compiled and loaded in {built.result():.1f} s "
-            f"(beside the data)")
-
+    t0 = time.time()
+    _build.load_library()
+    log(f"build: kernels compiled and loaded in {time.time() - t0:.1f} s "
+        f"(beside the host lane)")
     phase_ingest()
     k1 = phase_k1(dev)
     sync()
@@ -4210,12 +4420,31 @@ def run(dev):
     sync()
     gather = phase_gather(dev)
     sync()
+    # the gather probes, reduced (no data: they run while the host lane
+    # makes the main path's)
+    from ycnr_tpu_torch.tools import bench_gather, probe_gather
+
+    reset_launches()
+    probe_gather.main(["--m", "20", "--iters", "3", "--gram"])
+    bench_gather.main(["--steps", "5", "--gram"])
+    bench_gather.main(["--steps", "5", "--dtype", "f32"])
+    sync()
+    probe_launches = read_launches()
+    log(f"gather probes kernel launches: {probe_launches}")
+    check(probe_launches["take_along_rows"] > 0,
+          "take_along_rows launched on the probes")
 
     # ---- main path, exactly as bench.py runs it -------------------------
     # on the arrays in the port's bench cache (the script's own directory),
     # which every later bench and tool run reads; layouts cached there too
     n_users, n_items, rank, lam = (MAIN[k] for k in ("n_users", "n_items",
                                                      "rank", "lam"))
+    lane.wait("data")
+    (tu, ti, tr), (su, si, sr) = tbench.cached_coo(
+        n_users, n_items, MAIN["n_ratings"], 0)
+    u, i, r = (np.load(os.path.join(lane.dir, f"{k}.npy"))
+               for k in ("u", "i", "r"))
+    lane.wait("bucketed")
     data_tag = tbench.coo_tag(n_users, n_items, MAIN["n_ratings"], 0)
     ul, il = tbench.cached_layouts(tu, ti, tr, n_users, n_items, 32, rank,
                                    "bucketed", MAIN["groups"], data_tag)
@@ -4346,6 +4575,7 @@ def run(dev):
 
     # both blocked views, from the bench cache (the user view serves; both
     # are kept for the mesh phase's resident run)
+    lane.wait("blocked")
     lay, item_lay = tbench.cached_layouts(tu, ti, tr, n_users, n_items, 32,
                                           rank, "blocked", MAIN["groups"],
                                           data_tag)
@@ -4404,20 +4634,21 @@ def run(dev):
             serve = phase_serve(dev, u, i, cli, names, smi, tmp)
             sync()
             ooc = phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il,
-                            {"by_kernel": main_by_kernel}, cli, smi, tmp)
+                            {"by_kernel": main_by_kernel}, cli, smi, tmp,
+                            lane.wait("ooc"))
             sync()
             mesh = phase_mesh(dev, tu, ti, tr, su, si, sr, (lay, item_lay),
-                              rmse, tmp, smi)
-            phase_mesh_cli(cli, rmse, tmp, smi)
+                              rmse, tmp, smi, lane.wait("mesh"))
             sync()
             ooc_mesh = phase_ooc_mesh(dev, tu, ti, tr, (lay, item_lay),
-                                      mesh, rmse, cli, tmp, smi)
+                                      mesh, rmse, cli, tmp, smi,
+                                      lane.wait("ooc_mesh"))
             del lay, item_lay
             sync()
             # ---- the measuring layer: the bench, then the tools ---------
             bench_ph = phase_bench(dev, rmse, smi)
             sync()
-            tools_ph = phase_tools(dev, rmse, cli, smi, tmp)
+            tools_ph = phase_tools(dev, rmse, cli, smi, tmp, lane)
     finally:  # a name already unlinked is a no-op
         get_shm_lib().ycnr_shm_unlink(names["train"].encode())
         get_shm_lib().ycnr_shm_unlink(names["serve"].encode())
@@ -4444,19 +4675,6 @@ def run(dev):
         sync()
     narrow = phase_gather_narrow(dev, sgd, bpr["data"], bpr["rank"], smi)
     sync()
-
-    # ---- the gather probes, reduced --------------------------------------
-    from ycnr_tpu_torch.tools import bench_gather, probe_gather
-
-    reset_launches()
-    probe_gather.main(["--m", "20", "--iters", "3", "--gram"])
-    bench_gather.main(["--steps", "5", "--gram"])
-    bench_gather.main(["--steps", "5", "--dtype", "f32"])
-    sync()
-    probe_launches = read_launches()
-    log(f"gather probes kernel launches: {probe_launches}")
-    check(probe_launches["take_along_rows"] > 0,
-          "take_along_rows launched on the probes")
 
     # every rank-64 path runs K1's warp body only
     for what, ln in (("main path", launches), ("blocked", blocked_launches),

@@ -429,11 +429,12 @@ def _wide_inputs(dev, w, ne=40, R=300, n=500, seed=0, idx_dtype=np.int64):
 
 
 @pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
-@pytest.mark.parametrize("w", [129, 144, 192, 200, 250, 256])
+@pytest.mark.parametrize("w", [129, 136, 144, 160, 192, 200, 208, 240, 250,
+                               256])
 def test_fused_gram_wide_matches_its_mirror(dev, w, idx_dtype):
     """The wide body against its plain-torch mirror
     (tests/fused_gram_wide_mirror.py) and the plain version: the mirror
-    sums each mma step's 16 products in f32 in another order than the
+    sums each wgmma step's 16 products in f32 in another order than the
     tensor core, so both are held within the plain version's bound (the
     kernel to the mirror within twice it); A bit-symmetric, padding
     exact, a second run bit-equal."""
@@ -488,6 +489,50 @@ def test_fused_gram_wide_long_lists_split_into_parts(dev):
         fg.F64_REL
     assert torch.equal(A, A.transpose(1, 2))
     assert torch.equal(A[-1], torch.eye(192, device=dev))
+
+
+@pytest.mark.parametrize("w", [192, 256])
+def test_fused_gram_wide_persistent_grid_is_bit_equal(dev, w):
+    """More items than the persistent grid has blocks (1,000 entities of
+    300 slots, one part each): two runs are bit-equal, and each entity's A
+    and b are the bits of a call on the first 100 entities alone (another
+    grid, another block for every item), as one warpgroup's chain per
+    entry makes them."""
+    table, it, rt, reg = _wide_inputs(dev, w, ne=1000, R=300, seed=5)
+    assert fg._parts(1000, 300, fg.fill_blocks(w))[0] == 1
+    assert fg._parts(100, 300, fg.fill_blocks(w))[0] == 1
+    A, b = fg.fused_gram(table, it, rt, reg=reg)
+    A2, b2 = fg.fused_gram(table, it, rt, reg=reg)
+    As, bs = fg.fused_gram(table, it[:100].contiguous(),
+                           rt[:100].contiguous(), reg=reg[:100].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(A, A2) and torch.equal(b, b2)
+    assert torch.equal(A[:100], As) and torch.equal(b[:100], bs)
+    assert max(fg.fused_gram_f64_error(table, it, rt, reg, A, b)) <= \
+        fg.F64_REL
+
+
+@pytest.mark.parametrize("ne", [1, 2, 50])
+@pytest.mark.parametrize("w", [144, 192, 256])
+def test_fused_gram_wide_grids_smaller_than_the_card(dev, w, ne):
+    """Fewer items than SMs (one entity; a few; 50 entities of 300 slots,
+    one part each): the grid shrinks to the items, and each entity still
+    comes out within the bound of the plain version and F64_REL of
+    float64, bit-symmetric, the padding entity exact (ne > 1)."""
+    table, it, rt, reg = _wide_inputs(dev, w, ne=ne, R=300, seed=ne)
+    assert fg._parts(ne, 300, fg.fill_blocks(w))[0] == 1
+    A, b = fg.fused_gram(table, it, rt, reg=reg)
+    Ap, bp = fg.fused_gram_reference(table, it, rt, reg=reg)
+    torch.cuda.synchronize()
+    bA, bb = fg.fused_gram_bound(table[it].float(), rt, reg)
+    assert torch.all((A - Ap).abs() <= bA)
+    assert torch.all((b - bp).abs() <= bb)
+    assert max(fg.fused_gram_f64_error(table, it, rt, reg, A, b)) <= \
+        fg.F64_REL
+    assert torch.equal(A, A.transpose(1, 2))
+    if ne > 1:
+        assert torch.equal(A[-1], torch.eye(w, device=dev))
+        assert torch.all(b[-1] == 0)
 
 
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])

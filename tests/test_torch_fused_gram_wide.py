@@ -1,4 +1,4 @@
-"""fused_gram's wide body (128 < w <= 256) on the CPU: its tile deal, its
+"""fused_gram's wide body (128 < w <= 256) on the CPU: its block deal, its
 arithmetic mirrored in plain torch (``tests/fused_gram_wide_mirror.py``)
 against the plain version and a float64 sum, the wrapper's split at the
 wide body's fill, the route that now sends bf16 ALS-WR at ranks 129-256
@@ -43,22 +43,58 @@ def _inputs(w, ne=5, R=70, n=60, seed=0):
             0.05 * c + (c == 0))
 
 
-@pytest.mark.parametrize("T", range(9, 17))
-def test_tile_deal_covers_every_lower_tile_once(T):
-    """Warp v keeps rows T-1-v and v: every lower tile (and every row of
-    b) belongs to exactly one warp, no warp holds more than 17 tiles (136
-    f32 accumulators a thread) and no two tiles of a warp share an
-    accumulator."""
-    held = [t for v in range(mirror.WARPS) for t in mirror.warp_tiles(T, v)]
-    lower = sorted((i, j) for i in range(T) for j in range(i + 1))
-    assert sorted((ti, tj) for _, ti, tj in held) == lower
-    for v in range(mirror.WARPS):
-        tiles = mirror.warp_tiles(T, v)
-        assert len(tiles) <= 17
-        assert len({m for m, _, _ in tiles}) == len(tiles)
-        assert all(0 <= m <= T for m, _, _ in tiles)
-    rows = [r for v in range(mirror.WARPS) for r in mirror.warp_b_rows(T, v)]
-    assert sorted(rows) == list(range(T))
+ALL_WIDE = range(fg.NARROW_W + 1, fg.MAX_W + 1)
+
+
+@pytest.mark.parametrize("w", ALL_WIDE)
+def test_deal_covers_every_lower_block_once(w):
+    """At every wide width the two consumer warpgroups' runs cover every
+    lower 64 x 64 block of the padded Gram exactly once (each run adjacent
+    blocks of one block row, on or below the diagonal), and their rows of
+    b every row block once."""
+    T64 = mirror.blocks_a_side(w)
+    assert T64 == (3 if w <= 192 else 4)
+    held = [blk for g in range(mirror.WARPGROUPS)
+            for blk in mirror.warpgroup_blocks(T64, g)]
+    assert sorted(held) == [(i, j) for i in range(T64) for j in range(i + 1)]
+    for g in range(mirror.WARPGROUPS):
+        runs, _ = mirror.DEAL[T64][g]
+        assert all(n >= 1 and c0 + n - 1 <= r for r, c0, n in runs)
+    rows = [r for g in range(mirror.WARPGROUPS)
+            for r in mirror.warpgroup_b_rows(T64, g)]
+    assert sorted(rows) == list(range(T64))
+
+
+@pytest.mark.parametrize("w", ALL_WIDE)
+def test_accumulators_a_thread_at_most_168(w):
+    """A consumer thread's f32 accumulators (its runs' N / 2 and 4 a row
+    of b) stay within 168 at every width, and the two warpgroups' runs are
+    of equal width (the products split evenly)."""
+    T64 = mirror.blocks_a_side(w)
+    counts = [mirror.accumulators(T64, g) for g in range(mirror.WARPGROUPS)]
+    assert max(counts) <= 168
+    assert counts == ([104, 100] if T64 == 3 else [168, 168])
+    widths = [sum(n for _, _, n in mirror.DEAL[T64][g][0])
+              for g in range(mirror.WARPGROUPS)]
+    assert widths[0] == widths[1]
+
+
+def test_mirror_deal_is_the_kernels():
+    """The mirror's DEAL is the kernel's: the runs and rows of b of every
+    ``Deal<T64, G>`` in csrc/fused_gram.cu."""
+    import re
+
+    src = open(os.path.join(os.path.dirname(fg.__file__), os.pardir,
+                            "csrc", "fused_gram.cu")).read()
+    found = {}
+    for T64, g, body in re.findall(
+            r"struct Deal<(\d), (\d)> \{(.*?)\};", src, re.S):
+        v = {k: int(x) for k, x in re.findall(r"(\w+) = (-?\d+)", body)}
+        runs = [(v["r0"], v["c0"], v["n0"]), (v["r1"], v["c1"], v["n1"])]
+        found[(int(T64), int(g))] = (runs, [v["b0"], v["b1"]][:v["nb"]])
+    assert found == {(T64, g): (list(map(tuple, mirror.DEAL[T64][g][0])),
+                                mirror.DEAL[T64][g][1])
+                     for T64 in (3, 4) for g in range(2)}
 
 
 @pytest.mark.parametrize("ridge", [True, False])
@@ -106,13 +142,13 @@ def test_mirror_of_a_split_list_sums_its_parts():
     assert torch.equal(A[-1], reg[-1] * torch.eye(w))
 
 
-def test_a_dropped_tile_fails_the_checks(monkeypatch):
-    """The deal check is not vacuous: a deal that leaves one tile out
+def test_a_dropped_block_fails_the_checks(monkeypatch):
+    """The deal check is not vacuous: a deal that leaves one block out
     leaves NaN in A."""
-    real = mirror.warp_tiles
-    monkeypatch.setattr(mirror, "warp_tiles",
-                        lambda T, v: real(T, v)[1:] if v == 3 else
-                        real(T, v))
+    real = mirror.warpgroup_blocks
+    monkeypatch.setattr(mirror, "warpgroup_blocks",
+                        lambda T64, g: real(T64, g)[1:] if g == 1 else
+                        real(T64, g))
     table, idx, rat, reg = _inputs(192, seed=4)
     A, _ = mirror.fused_gram_wide_mirror(table, idx, rat, reg)
     assert torch.isnan(A).any()

@@ -57,6 +57,7 @@ _SLICE_MODULES = {
     "ycnr_tpu_torch.data.synthetic", "ycnr_tpu_torch.ops.bucketed",
     "ycnr_tpu_torch.ops.layout", "ycnr_tpu_torch.data.native",
     "ycnr_tpu_torch.tools.bench_solve_score",
+    "ycnr_tpu_torch.tools.bench_fused_gram",
     "ycnr_tpu_torch.oracle", "ycnr_tpu_torch.oracle.numpy_mf",
     "ycnr_tpu_torch.train.metrics", "ycnr_tpu_torch.train.checkpoint",
     "ycnr_tpu_torch.models.sgd", "ycnr_tpu_torch.models.sgd_stream",

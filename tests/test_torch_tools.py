@@ -257,3 +257,28 @@ def test_tool_process_with_jax_blocked(tool, argv, n_lines, tmp_path):
     assert len(lines) == n_lines
     for x in lines:
         json.loads(x)
+
+
+def test_cached_dataset_loads_once_and_equals_load_dataset(tmp_path,
+                                                           monkeypatch):
+    """quality_calibrated's dataset through the bench cache: the first call
+    loads and writes it, the second reads it back without generating, and
+    both equal ``load_dataset`` of the same config array for array."""
+    from ycnr_tpu_torch.data import dataset as dsmod
+    from ycnr_tpu_torch.tools import bench as tbench
+
+    monkeypatch.setenv("YCNR_BENCH_CACHE", str(tmp_path / "cache"))
+    data = tquality.data_config("calibrated", "smoke", 0)
+    want = dsmod.load_dataset(data, rank_hint=32)
+    calls = []
+    real = dsmod.load_dataset
+    monkeypatch.setattr(dsmod, "load_dataset",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = [tbench.cached_dataset(data, 32) for _ in range(2)]
+    assert calls == [1]
+    for ds in got:
+        for k in ("train_u", "train_i", "train_r", "test_u", "test_i",
+                  "test_r"):
+            assert np.array_equal(getattr(ds, k), getattr(want, k))
+        assert (ds.n_users, ds.n_items, ds.mu) == (want.n_users,
+                                                   want.n_items, want.mu)

@@ -42,12 +42,16 @@ comes out exactly A = reg I, b = 0.
 
 Two bodies: w <= 128 (``NARROW_W``) runs the 4-warp body, whose warps
 may split a stage's 16-slot steps and then add up to four partials;
-128 < w <= 256 runs the 8-warp wide body, in which every entry of A and b
-is one warp's chain of ceil(R / 16) steps in slot order, with no adds
-across warps. Both bounds above therefore hold for the wide body for the
-same reason, with three adds to spare, and ``F64_REL`` is held to it on
-the card (``chip_smoke.py``) at w 192, 250 and 256: an entry's error
-comes from the steps along R, whatever the width.
+128 < w <= 256 runs the wide body (``wgmma`` on a warp-specialised ring,
+persistent blocks), in which every entry of A and b is one warpgroup's
+chain of ``wgmma m64nNk16`` steps in slot order (ceil(R / 16) that carry
+products; the rest of the last 64-slot stage adds exact zeros), with no
+adds across warpgroups. A ``wgmma`` k16 step falls under the same argument as
+an ``mma.sync m16n8k16`` step: it adds 16 exact products of bf16 values to
+the f32 accumulator, one chain an entry. So both bounds above hold for the
+wide body for the same reason, with three adds to spare, and ``F64_REL``
+is held to it on the card (``chip_smoke.py``) at w 192, 250 and 256: an
+entry's error comes from the steps along R, whatever the width.
 """
 
 from __future__ import annotations
@@ -61,12 +65,13 @@ from ycnr_tpu_torch.ops import _build
 MAX_W = 256  # the kernel's width limit, K1's too
 NARROW_W = 128  # the widest rows of the 4-warp body; wider: the wide body
 
-# The kernel runs one block per entity. A call with fewer entities than
-# the body's fill cuts each long rating list into parts of at least
-# _MIN_PART slots, one block each, and sums the parts. The 4-warp body
-# keeps three blocks resident per SM of an H100 (396); the wide body one
-# (~190 registers a thread x 256 threads), so its fill is two waves of
-# 132, the second evening out the first's ragged end.
+# The kernel runs one block per (entity, part) item. A call with fewer
+# entities than the body's fill cuts each long rating list into parts of
+# at least _MIN_PART slots, one item each, and sums the parts. The 4-warp
+# body keeps three blocks resident per SM of an H100 (396). The wide body
+# runs one persistent block an SM (132, ~200 KB of shared memory each),
+# which walk the items in a fixed stride: its fill is two items a block,
+# the second evening out the first's ragged end.
 _FILL_BLOCKS = 396
 _FILL_BLOCKS_WIDE = 264
 _MIN_PART = 256

@@ -171,6 +171,43 @@ def cached_coo(n_users: int, n_items: int, n_ratings: int, seed: int = 0):
     return (tu, ti, tr), (su, si, sr)
 
 
+def cached_dataset(data, rank_hint: int = 64):
+    """``load_dataset(data, rank_hint)`` for a synthetic ``DataConfig``
+    from the cache, or loaded and cached (a pickle tagged by the config
+    and the code of the generator, the split and ``Dataset``; the
+    calibrated generator takes tens of seconds at the ML-20M shape). Other
+    sources load as they are."""
+    import pickle
+
+    import ycnr_tpu_torch.data.dataset as _ds_mod
+    import ycnr_tpu_torch.data.split as _split_mod
+    import ycnr_tpu_torch.data.synthetic as _synth_mod
+    from ycnr_tpu_torch.data.dataset import load_dataset
+
+    if data.source != "synthetic":
+        return load_dataset(data, rank_hint=rank_hint)
+    key = hashlib.sha256(repr((data, rank_hint)).encode()).hexdigest()[:10]
+    code = _code_hash(_ds_mod, _split_mod, _synth_mod)
+    path = _cache_path(f"ds_{key}_{code}")[:-len(".npz")] + ".pkl"
+    if os.path.exists(path):
+        try:
+            with open(path, "rb") as f:
+                ds = pickle.load(f)
+            log(f"dataset cache hit {path}")
+            return ds
+        except Exception as e:  # stale/corrupt cache -> rebuild
+            log(f"cache load failed for {path} ({e}); rebuilding")
+    t0 = time.time()
+    ds = load_dataset(data, rank_hint=rank_hint)
+    log(f"dataset: {len(ds.train_r):,} train ratings in "
+        f"{time.time() - t0:.1f}s")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(ds, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+    return ds
+
+
 def layout_path(data_tag: str, chunk_len: int, rank: int, layout: str,
                 groups: int = 8) -> str:
     """The cache file of a pair of layouts (users ``ul``, items ``il``).

@@ -25,7 +25,8 @@ import json
 import os
 import time
 
-from ycnr_tpu_torch.tools.bench import json_stdout, tool_device
+from ycnr_tpu_torch.tools.bench import cached_dataset, json_stdout, \
+    tool_device
 
 SCALES = {
     # ML-20M shape
@@ -33,6 +34,15 @@ SCALES = {
     # tiny CPU smoke for CI
     "smoke": dict(n_users=700, n_items=300, n_ratings=30_000),
 }
+
+
+def data_config(generator: str = "calibrated", scale: str = "ml20m",
+                seed: int = 0):
+    """The one dataset every algorithm of a run trains on."""
+    from ycnr_tpu_torch.config import DataConfig
+
+    return DataConfig(source="synthetic", synthetic_mode=generator,
+                      seed=seed, chunk_len=32, **SCALES[scale])
 
 
 def _epoch_records(out_dir):
@@ -81,13 +91,10 @@ def main(argv=None) -> dict:
 
 
 def _run(ap, args, device, emit) -> dict:
-    from ycnr_tpu_torch.config import (ALSConfig, BPRConfig, DataConfig,
-                                       IALSConfig, RunConfig, SGDConfig)
-    from ycnr_tpu_torch.data.dataset import load_dataset
+    from ycnr_tpu_torch.config import (ALSConfig, BPRConfig, IALSConfig,
+                                       RunConfig, SGDConfig)
 
-    shape = SCALES[args.scale]
-    data = DataConfig(source="synthetic", synthetic_mode=args.generator,
-                      seed=args.seed, chunk_len=32, **shape)
+    data = data_config(args.generator, args.scale, args.seed)
     tag = f"{args.generator}-{args.scale}-r{args.rank}"
     cfgs = {
         "bpr": RunConfig(
@@ -119,8 +126,9 @@ def _run(ap, args, device, emit) -> dict:
     unknown = set(algos) - set(cfgs)
     if unknown:
         ap.error(f"unknown algos: {sorted(unknown)}")
-    # ONE dataset -> identical train/test split for every algorithm
-    ds = load_dataset(data, rank_hint=args.rank)
+    # ONE dataset -> identical train/test split for every algorithm (from
+    # the bench cache when a run made it before)
+    ds = cached_dataset(data, rank_hint=args.rank)
     results = [run(a, cfgs[a], ds, args.out, device) for a in algos]
     summary = dict(generator=args.generator, scale=args.scale,
                    rank=args.rank, epochs=args.epochs, seed=args.seed,
