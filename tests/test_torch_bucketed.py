@@ -237,8 +237,6 @@ def test_fused_branch_equals_bucket_solve_rows(problem):
     solve), run on the CPU with the plain versions on the bf16-rating
     layout, gives bit for bit what bucket_solve_rows gives with bf16
     gathers on the f32 layout, block by block."""
-    from ycnr_tpu_torch.ops.row_gather import row_gather
-
     _, ts = _states(jnp.float32, torch.float32)
     for lay, F in ((problem["ul"], ts.V), (problem["il"], ts.U)):
         F_g = F.to(torch.bfloat16)
@@ -249,8 +247,7 @@ def test_fused_branch_equals_bucket_solve_rows(problem):
                 oi, rr, cnt = g.other_idx[j], g.rating[j], g.entity_cnt[j]
                 got = tbp.bucket_fused_rows(F_g, oi, g16.rating[j], cnt,
                                             LAM)
-                want = tbp.bucket_solve_rows(row_gather(F_g, oi), rr, cnt,
-                                             LAM, None, None, torch.float32,
-                                             True)
+                want = tbp.bucket_solve_rows(F_g, oi, rr, cnt, LAM, None,
+                                             None, torch.float32, True)
                 assert got.dtype == torch.float32
                 assert torch.equal(got, want)

@@ -219,7 +219,6 @@ def test_rank192_fused_rows_equal_bucket_solve_rows(side):
     from ycnr_tpu_torch.data.synthetic import synthetic_ratings
     from ycnr_tpu_torch.models.base import init_state
     from ycnr_tpu_torch.ops.bucketed import build_bucketed
-    from ycnr_tpu_torch.ops.row_gather import row_gather
 
     k, nu, ni = 192, 60, 40
     u, i, r = synthetic_ratings(nu, ni, 900, true_rank=4, noise=0.3, seed=1)
@@ -236,8 +235,8 @@ def test_rank192_fused_rows_equal_bucket_solve_rows(side):
         for j in range(g.other_idx.shape[0]):
             oi, rr, cnt = g.other_idx[j], g.rating[j], g.entity_cnt[j]
             got = bp.bucket_fused_rows(F_g, oi, g16.rating[j], cnt, 0.05)
-            want = bp.bucket_solve_rows(row_gather(F_g, oi), rr, cnt, 0.05,
-                                        None, None, torch.float32, True)
+            want = bp.bucket_solve_rows(F_g, oi, rr, cnt, 0.05, None, None,
+                                        torch.float32, True)
             assert got.dtype == torch.float32
             assert torch.equal(got, want)
             blocks += 1

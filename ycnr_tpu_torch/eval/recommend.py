@@ -25,6 +25,7 @@ from ycnr_tpu_torch.ops.fused_topn import (
     fused_topn_blocks,
 )
 from ycnr_tpu_torch.ops.layout import BlockedCSR
+from ycnr_tpu_torch.utils.profiling import span
 
 
 def overfetch_n(n: int, n_extra: int) -> int:
@@ -212,26 +213,32 @@ def recommend_all(state: MFState, user_layout: BlockedCSR, n: int = 10,
     "fused32" keeps the score buffer f32 (bf16 inputs only). A catalog too
     small for the two-level select is served "exact" on the CPU and
     raises on the card (``use_fused``).
+
+    Spans (``utils/profiling.span``): ``pass`` around the call, and in it
+    ``upload`` (the rated bits to the device), the fused path's ``score``
+    and ``select`` (``ops/fused_topn.fused_topn_core``) and ``to_host``.
     """
-    n = min(int(n), state.n_items)  # top-k past the catalog size fails
-    if rated_bits is None:
-        rated_bits = build_rated_bits(user_layout, state.n_items)
-    dev = state.U.device
-    bits = bits_tensor(rated_bits, dev)
-    eids = np.asarray(user_layout.entity_ids)
-    if use_fused(method, state.n_items, n, dev):
-        ids, sc = fused_topn_blocks(
-            state, torch.as_tensor(eids, device=dev), bits, n,
-            score_bf16=(method != "fused32"))
-    else:
-        ids, sc = _topn_blocks(state, device_layout(user_layout,
-                                                    state.U.dtype, dev), n,
-                               bits)
-    eids = eids.reshape(-1)
-    ids = ids.cpu().numpy().reshape(-1, n)
-    sc = sc.cpu().numpy().reshape(-1, n)
-    real = eids < state.n_users
-    return eids[real], ids[real], sc[real]
+    with span("pass"):
+        n = min(int(n), state.n_items)  # top-k past the catalog size fails
+        if rated_bits is None:
+            rated_bits = build_rated_bits(user_layout, state.n_items)
+        dev = state.U.device
+        with span("upload"):
+            bits = bits_tensor(rated_bits, dev)
+        eids = np.asarray(user_layout.entity_ids)
+        if use_fused(method, state.n_items, n, dev):
+            ids, sc = fused_topn_blocks(
+                state, torch.as_tensor(eids, device=dev), bits, n,
+                score_bf16=(method != "fused32"))
+        else:
+            ids, sc = _topn_blocks(state, device_layout(
+                user_layout, state.U.dtype, dev), n, bits)
+        eids = eids.reshape(-1)
+        with span("to_host"):
+            ids = ids.cpu().numpy().reshape(-1, n)
+            sc = sc.cpu().numpy().reshape(-1, n)
+        real = eids < state.n_users
+        return eids[real], ids[real], sc[real]
 
 
 def _topn_users(state: MFState, user_ids, rated_padded, n: int):

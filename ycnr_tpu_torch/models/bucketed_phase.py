@@ -27,6 +27,7 @@ from ycnr_tpu_torch.ops.fused_gram import MAX_W, fused_gram
 from ycnr_tpu_torch.ops.gram import guarded_batched_solve
 from ycnr_tpu_torch.ops.row_gather import row_gather
 from ycnr_tpu_torch.ops.spd_solve import spd_solve
+from ycnr_tpu_torch.utils.profiling import span
 
 
 class DeviceBucketGroup(NamedTuple):
@@ -75,15 +76,20 @@ def uses_fused(device, dtype, alpha, gather_bf16: bool, width: int) -> bool:
             and gather_bf16 and dtype == torch.float32 and width <= MAX_W)
 
 
-def bucket_solve_rows(Fg, rr, cnt, lam, alpha, base_gram, acc_t,
+def bucket_solve_rows(F_g, oi, rr, cnt, lam, alpha, base_gram, acc_t,
                       gather_bf16: bool) -> torch.Tensor:
-    """Gram -> guarded solve for one bucket block's gathered rows.
+    """Row gather -> Gram -> guarded solve for one bucket block, a span
+    each step (``normal_eq``, ``solve``).
 
-    Fg [NE, R, k] gathered other-factor rows; rr [NE, R] ratings in the
-    factor dtype; cnt [NE] rating counts (0 for padding slots).
+    F_g the other factor (bf16 with ``gather_bf16``); oi [NE, R] its row
+    ids; rr [NE, R] ratings in the factor dtype; cnt [NE] rating counts (0
+    for padding slots).
     """
-    A, b = bucket_normal_eq(Fg, rr, alpha, acc_t, gather_bf16)
-    return bucket_finish_solve(A, b, cnt, lam, alpha, base_gram)
+    with span("normal_eq"):
+        A, b = bucket_normal_eq(row_gather(F_g, oi), rr, alpha, acc_t,
+                                gather_bf16)
+    with span("solve"):
+        return bucket_finish_solve(A, b, cnt, lam, alpha, base_gram)
 
 
 def bucket_normal_eq(Fg, rr, alpha, acc_t, gather_bf16):
@@ -127,9 +133,12 @@ def bucket_fused_rows(F_g, oi, rr16, cnt, lam) -> torch.Tensor:
     ratings, cnt [NE] f32. ``fused_gram``'s A already holds the ridge and
     is symmetric, so no ``guarded_batched_solve`` pass runs; on the CPU
     both steps are their plain versions, and the result equals
-    ``bucket_solve_rows`` with bf16 gathers bit for bit."""
-    A, b = fused_gram(F_g, oi, rr16, reg=lam * cnt + (cnt == 0))
-    return spd_solve(A, b)
+    ``bucket_solve_rows`` with bf16 gathers bit for bit. A span each step,
+    as there."""
+    with span("normal_eq"):
+        A, b = fused_gram(F_g, oi, rr16, reg=lam * cnt + (cnt == 0))
+    with span("solve"):
+        return spd_solve(A, b)
 
 
 def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
@@ -153,6 +162,11 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
     (``ops/row_gather.py``) and runs ``bucket_normal_eq`` and
     ``guarded_batched_solve``, with ratings in E's dtype. On the CPU every
     kernel is its plain version, which is this function's plain path.
+
+    Each block records two spans (``utils/profiling.span``), in those two
+    functions: ``normal_eq`` (the gather and the normal equations, with
+    the ridge on the fused branch) and ``solve``; the rows' write-back
+    lies in the phase's span alone.
     """
     F_g = F.to(torch.bfloat16) if gather_bf16 else F
     fused = uses_fused(E.device, E.dtype, alpha, gather_bf16, E.shape[1])
@@ -168,9 +182,8 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
             if fused:
                 rows = bucket_fused_rows(F_g, oi, rr, cnt.to(E.dtype), lam)
             else:
-                rows = bucket_solve_rows(row_gather(F_g, oi), rr, cnt, lam,
-                                         alpha, base_gram, E.dtype,
-                                         gather_bf16)
+                rows = bucket_solve_rows(F_g, oi, rr, cnt, lam, alpha,
+                                         base_gram, E.dtype, gather_bf16)
             E[g.entity_ids[j]] = rows.to(E.dtype)
     return E
 
@@ -182,10 +195,13 @@ def als_epoch_fn(user_groups: DeviceBucketedCSR,
     against the NEW U). The returned state shares the input's tensors,
     which are updated in place."""
     def one(st: MFState) -> MFState:
-        U = phase_bucketed(st.U, st.V, user_groups, lam,
-                           gather_bf16=gather_bf16)
-        V = phase_bucketed(st.V, U, item_groups, lam,
-                           gather_bf16=gather_bf16)
+        with span("epoch"):
+            with span("phase.user"):
+                U = phase_bucketed(st.U, st.V, user_groups, lam,
+                                   gather_bf16=gather_bf16)
+            with span("phase.item"):
+                V = phase_bucketed(st.V, U, item_groups, lam,
+                                   gather_bf16=gather_bf16)
         return st._replace(U=U, V=V)
 
     return one
@@ -196,10 +212,17 @@ def ials_epoch_fn(user_groups: DeviceBucketedCSR,
                   alpha, gather_bf16: bool = False):
     """iALS analog of als_epoch_fn (global base Gram per sweep side)."""
     def one(st: MFState) -> MFState:
-        U = phase_bucketed(st.U, st.V, user_groups, lam, alpha,
-                           st.V.T @ st.V, gather_bf16=gather_bf16)
-        V = phase_bucketed(st.V, U, item_groups, lam, alpha, U.T @ U,
-                           gather_bf16=gather_bf16)
+        with span("epoch"):
+            with span("phase.user"):
+                with span("normal_eq"):
+                    G = st.V.T @ st.V
+                U = phase_bucketed(st.U, st.V, user_groups, lam, alpha, G,
+                                   gather_bf16=gather_bf16)
+            with span("phase.item"):
+                with span("normal_eq"):
+                    G = U.T @ U
+                V = phase_bucketed(st.V, U, item_groups, lam, alpha, G,
+                                   gather_bf16=gather_bf16)
         return st._replace(U=U, V=V)
 
     return one

@@ -207,17 +207,16 @@ def _gather_solve(F_g, oi, rr, cntf, base_gram, lam, alpha, acc_t,
     NE, R = oi.shape
     s, sr = _split_plan(NE, R, F_g.shape[1], F_g.element_size())
     if s == 1 and sr == 1:
-        return bucket_solve_rows(row_gather(F_g, oi), rr, cntf, lam, alpha,
-                                 base_gram, acc_t, gather_bf16)
+        return bucket_solve_rows(F_g, oi, rr, cntf, lam, alpha, base_gram,
+                                 acc_t, gather_bf16)
     q, qr = NE // s, R // sr
     k = F_g.shape[1]
     out = []
     for a in range(0, NE, q):
         soi, srr, scnt = oi[a:a + q], rr[a:a + q], cntf[a:a + q]
         if sr == 1:
-            out.append(bucket_solve_rows(row_gather(F_g, soi), srr, scnt,
-                                         lam, alpha, base_gram, acc_t,
-                                         gather_bf16))
+            out.append(bucket_solve_rows(F_g, soi, srr, scnt, lam, alpha,
+                                         base_gram, acc_t, gather_bf16))
             continue
         A = torch.zeros(q, k, k, dtype=acc_t, device=oi.device)
         b = torch.zeros(q, k, dtype=acc_t, device=oi.device)

@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ycnr_tpu_torch.ops import _build
+from ycnr_tpu_torch.utils.profiling import span
 
 NEG_INF = -3.0e38  # matches eval.recommend.NEG_INF (finite: no inf - inf)
 
@@ -165,6 +166,10 @@ def fused_topn_core(U, V, bu, bi, mu, entity_ids, rated_bits, n: int, *,
     state), as in the reference. Users with fewer than n unrated
     items get ``NEG_INF``-scored tail picks whose ids may lie in
     [n_items, W * 32); callers drop entries scoring <= NEG_INF / 2.
+
+    Spans (``utils/profiling.span``): ``score`` for the set-up and for
+    each block's gather and K2, ``select`` for each block's top-n, and
+    ``to_host`` for the lists stacked to be copied out.
     """
     w = rated_bits.shape[-1]
     m = w * 32
@@ -174,23 +179,28 @@ def fused_topn_core(U, V, bu, bi, mu, entity_ids, rated_bits, n: int, *,
                          "use the exact scorer")
     dev = U.device
     k = U.shape[1]
-    ub16 = U.to(torch.bfloat16)
-    vp = torch.zeros(m, k, dtype=torch.bfloat16, device=dev)
-    vp[: V.shape[0]] = V.to(torch.bfloat16)
-    bip = torch.zeros(m, dtype=torch.float32, device=dev)
-    bip[: bi.shape[0]] = bi.float()
+    with span("score"):
+        ub16 = U.to(torch.bfloat16)
+        vp = torch.zeros(m, k, dtype=torch.bfloat16, device=dev)
+        vp[: V.shape[0]] = V.to(torch.bfloat16)
+        bip = torch.zeros(m, dtype=torch.float32, device=dev)
+        bip[: bi.shape[0]] = bi.float()
     ids, vals = [], []
     for eids, bits_b in zip(entity_ids, rated_bits):
-        eids = eids.long()
-        segmax, s3 = _fused_scores(ub16[eids], vp, bip, bits_b, score_bf16)
-        _, top_seg = torch.topk(segmax, n, dim=1)  # exact: f32 maxima
-        cand = torch.gather(
-            s3, 1, top_seg[:, :, None].expand(-1, -1, SEG_LEN)).float()
-        v, loc = torch.topk(cand.reshape(-1, n * SEG_LEN), n, dim=1)
-        seg_sel = torch.gather(top_seg, 1, loc // SEG_LEN)
-        ids.append((seg_sel * SEG_LEN + loc % SEG_LEN).to(torch.int32))
-        vals.append(v + (mu + bu[eids])[:, None])  # exact rebias
-    return torch.stack(ids), torch.stack(vals)
+        with span("score"):
+            eids = eids.long()
+            segmax, s3 = _fused_scores(ub16[eids], vp, bip, bits_b,
+                                       score_bf16)
+        with span("select"):
+            _, top_seg = torch.topk(segmax, n, dim=1)  # exact: f32 maxima
+            cand = torch.gather(
+                s3, 1, top_seg[:, :, None].expand(-1, -1, SEG_LEN)).float()
+            v, loc = torch.topk(cand.reshape(-1, n * SEG_LEN), n, dim=1)
+            seg_sel = torch.gather(top_seg, 1, loc // SEG_LEN)
+            ids.append((seg_sel * SEG_LEN + loc % SEG_LEN).to(torch.int32))
+            vals.append(v + (mu + bu[eids])[:, None])  # exact rebias
+    with span("to_host"):
+        return torch.stack(ids), torch.stack(vals)
 
 
 def fused_topn_blocks(state, entity_ids, rated_bits, n: int, *,
