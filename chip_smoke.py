@@ -28,7 +28,9 @@ Run from the repository root:  python3 chip_smoke.py
    bucketed layout (8 groups), bf16 gathers through the fused gather ->
    Gram kernel with the ridge in its epilogue
    (first held to its bound on the smallest-R and largest-R blocks of both
-   layouts, then on every block of the user layout with a bf16 table of
+   layouts, and so is its weighted mode, iALS's normal equations with the
+   base Gram and the ridge, within F64_REL too and timed on one user
+   phase; then on every block of the user layout with a bf16 table of
    the item factor's shape at w 128, 192, 256 and 250: the 4-warp body's
    widest and the wide body's, each within its bound of the plain version
    and within F64_REL of float64, bit-symmetric, padding exact, a second
@@ -794,6 +796,88 @@ def phase_fused_gram(state, dul, dil) -> dict:
             "bound_ms": bnd[0], "bound_by": bnd[1]}
 
 
+def phase_fused_gram_weighted(state, dul, dil) -> dict:
+    """fused_gram's weighted mode (iALS: alpha 40, the base Gram of the
+    start factors made symmetric, the ridge lam 0.1) against its plain
+    version on the main path's blocks, as ``phase_fused_gram`` holds the
+    plain mode: the smallest-R and largest-R groups of both layouts, within
+    the stated bound, A bit-symmetric, padding entities exactly G + lam I,
+    b = 0, and within F64_REL of a float64 sum of the same products. Then
+    one user phase's weighted normal equations timed, against the plain
+    gather -> weighted f32 einsums -> base -> ridge -> symmetrize."""
+    from ycnr_tpu_torch.models.bucketed_phase import fused_base
+    from ycnr_tpu_torch.ops.fused_gram import (F64_REL, fused_gram_bound,
+                                               fused_gram_cuda,
+                                               fused_gram_f64_error,
+                                               fused_gram_reference)
+
+    lam, alpha = IALS["lam"], IALS["alpha"]
+    worst = 0.0
+    for side, lay, F in (("user", dul, state.V), ("item", dil, state.U)):
+        table = F.to(torch.bfloat16)
+        G = fused_base(F.T @ F)
+        n_ent = (state.U if side == "user" else state.V).shape[0] - 1
+        for which, g in (("smallest", lay[0]), ("largest", lay[-1])):
+            oi, rat, eid = g.other_idx[-1], g.rating[-1], g.entity_ids[-1]
+            kw = dict(alpha=alpha, base=G)
+            A, b = fused_gram_cuda(table, oi, rat, lam, **kw)
+            Ap, bp = fused_gram_reference(table, oi, rat, lam, **kw)
+            bA, bb = fused_gram_bound(table[oi].float(), rat, lam, **kw)
+            rel = fused_gram_f64_error(table, oi, rat, lam, A, b, **kw)
+            rel_plain = fused_gram_f64_error(table, oi, rat, lam, Ap, bp,
+                                             **kw)
+            sync()
+            errA, errb = (A - Ap).abs(), (b - bp).abs()
+            pad = eid == n_ent
+            want_pad = G + lam * torch.eye(A.shape[-1], device=A.device)
+            name = (f"{side} layout, {which} R={oi.shape[1]}, "
+                    f"NE={oi.shape[0]}")
+            log(f"fused_gram (weighted) {name}: max |A - plain| "
+                f"{errA.max().item():.3e}, max |b - plain| "
+                f"{errb.max().item():.3e}, largest share of the bound "
+                f"{(errA / bA.clamp_min(1e-30)).max().item():.3e}; against "
+                f"float64, relative to |F|^T wt |F| + |G| + lam I: A "
+                f"{rel[0]:.3e}, b {rel[1]:.3e} (plain f32: A "
+                f"{rel_plain[0]:.3e}, b {rel_plain[1]:.3e}; limit "
+                f"{F64_REL:.3e}); padding entities {int(pad.sum())}")
+            check(bool((errA <= bA).all() and (errb <= bb).all()),
+                  f"fused_gram weighted {name}: A and b in bound")
+            check(max(rel) <= F64_REL, f"fused_gram weighted {name}: "
+                  f"within {F64_REL:.3e} of float64")
+            check(torch.equal(A, A.transpose(1, 2)),
+                  f"fused_gram weighted {name}: A bit-symmetric")
+            check(bool(pad.any()) and bool(
+                (A[pad] == want_pad).all() and (b[pad] == 0).all()),
+                f"fused_gram weighted {name}: padding entities exactly "
+                f"G + lam I, b = 0")
+            worst = max(worst, errA.max().item(), errb.max().item())
+    table = state.V.to(torch.bfloat16)
+    G = fused_base(state.V.T @ state.V)
+    blocks = [(oi, rr) for g in dul for oi, rr in zip(g.other_idx, g.rating)]
+    kw = dict(alpha=alpha, base=G)
+    plain_ms = cuda_ms(lambda: [fused_gram_reference(table, oi, r, lam, **kw)
+                                for oi, r in blocks], iters=3, warmup=1)
+    ms = min(cuda_ms(lambda: [fused_gram_cuda(table, oi, r, lam, **kw)
+                              for oi, r in blocks], iters=3, warmup=w0)
+             for w0 in (1, 0))
+    w = table.shape[1]
+    slots = sum(oi.numel() for oi, _ in blocks)
+    ents = sum(oi.shape[0] for oi, _ in blocks)
+    # read idx, ratings and the table (once per call); write A and b; the
+    # lower half of F^T wt F, the weights and b, and G added to every A
+    nbytes = (slots * (blocks[0][0].element_size() + 2)
+              + ents * 4 * (w * w + w) + len(blocks) * table.numel() * 2)
+    bnd = bound_ms(nbytes, slots * (w * (w + 1) + 4 * w) + ents * w * w,
+                   PEAK_BF16)
+    log(f"fused_gram (weighted), one user phase's iALS normal equations "
+        f"({len(blocks)} blocks, {slots:,} slots, {ents:,} entities): "
+        f"kernel {ms:.3f} ms, plain gather -> weighted f32 einsums -> base "
+        f"-> ridge -> symmetrize {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms "
+        f"({bnd[1]}), {bnd[0] / ms:.3f} of the bound")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
 # fused_gram on one user phase's blocks at these widths: the 4-warp body's
 # widest (for reference) and the wide body's, one of them w % 8 != 0 (its
 # plain loads)
@@ -988,6 +1072,7 @@ def reset_launches():
         mod.launches = 0
     spd_solve.body_launches.update(dict.fromkeys(spd_solve.body_launches, 0))
     row_gather.take_launches = 0
+    fused_gram.weighted_launches = 0
     gram.guarded_solves = 0
 
 
@@ -1002,6 +1087,8 @@ def read_launches() -> dict:
             "row_gather": row_gather.launches,
             "take_along_rows": row_gather.take_launches,
             "fused_gram": fused_gram.launches,
+            # of them, the weighted mode's (iALS)
+            "fused_gram weighted": fused_gram.weighted_launches,
             "guarded_batched_solve (calls)": gram.guarded_solves}
 
 
@@ -2268,7 +2355,8 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
     in this call (RMSE trajectory and factors bit for bit), the reference
     trajectory, zero trash and cold rows, s/epoch, bytes streamed, peak
     device memory, epoch 3 by kernel. Then one iALS epoch streamed against
-    the resident bucketed iALS epoch; wire-order storage (2 epochs) against
+    the resident bucketed iALS epoch, with bf16 gathers (fused_gram's
+    weighted mode) and with f32 gathers (row_gather); wire-order storage (2 epochs) against
     the classic OOC run from the same init; rmse_wire against rmse_padded;
     stream SGD (ml1m-sgd's hyperparameters, 2 epochs, one batch order) in
     its four forms; and python -m ycnr_tpu_torch train --ooc on the CLI
@@ -2502,25 +2590,41 @@ def phase_ooc(dev, tu, ti, tr, su, si, sr, ul, il, main: dict, cli,
         return zero_cold_entities(init_state(n_users, n_items, rank, seed=0,
                                              device=dev), tu, ti)
 
-    dul = device_bucketed(ul, torch.float32, dev)
-    dil = device_bucketed(il, torch.float32, dev)
-    t0 = time.time()
-    want = ials_epoch_fn(dul, dil, IALS["lam"], IALS["alpha"], True)(start())
-    sync()
-    t_res = time.time() - t0
-    del dul, dil
-    t0 = time.time()
-    got, m = measured(lambda: ooc.ials_epoch_ooc(
-        start(), upk, ipk, IALS["lam"], IALS["alpha"], gather_bf16=True))
-    t_ooc = time.time() - t0
-    same = torch.equal(got.U, want.U) and torch.equal(got.V, want.V)
-    log(f"ooc iALS epoch (host, bf16 gathers): bit-equal to the resident "
-        f"bucketed iALS epoch: {same}; {t_ooc:.3f} s (resident "
-        f"{t_res:.3f} s); launches {m['launches']}")
-    check(same, "ooc iALS: bit-equal to the resident epoch")
-    check(m["launches"]["row_gather"] > 0 and m["launches"]["spd_solve"] > 0,
-          "ooc iALS: row_gather and K1 launched")
-    del got, want
+    # bf16 gathers at rank 64: fused_gram's weighted mode on bf16 ratings;
+    # f32 gathers: the row gather, the einsums and K1 (ooc._gather_solve)
+    for bf16 in (True, False):
+        rdt = torch.bfloat16 if bf16 else torch.float32
+        dul = device_bucketed(ul, torch.float32, dev, rdt)
+        dil = device_bucketed(il, torch.float32, dev, rdt)
+        t0 = time.time()
+        want = ials_epoch_fn(dul, dil, IALS["lam"], IALS["alpha"],
+                             bf16)(start())
+        sync()
+        t_res = time.time() - t0
+        del dul, dil
+        t0 = time.time()
+        got, m = measured(lambda bf16=bf16: ooc.ials_epoch_ooc(
+            start(), upk, ipk, IALS["lam"], IALS["alpha"], gather_bf16=bf16))
+        t_ooc = time.time() - t0
+        same = torch.equal(got.U, want.U) and torch.equal(got.V, want.V)
+        gathers = "bf16" if bf16 else "f32"
+        log(f"ooc iALS epoch (host, {gathers} gathers): bit-equal to the "
+            f"resident bucketed iALS epoch: {same}; {t_ooc:.3f} s (resident "
+            f"{t_res:.3f} s); launches {m['launches']}")
+        check(same, f"ooc iALS, {gathers} gathers: bit-equal to the "
+              f"resident epoch")
+        ln = m["launches"]
+        if bf16:
+            check(ln["fused_gram weighted"] > 0 and ln["spd_solve"] > 0
+                  and ln["row_gather"] == 0,
+                  "ooc iALS, bf16 gathers: fused_gram's weighted mode and K1 "
+                  "launched, no row_gather")
+        else:
+            check(ln["row_gather"] > 0 and ln["spd_solve"] > 0
+                  and ln["fused_gram"] == 0,
+                  "ooc iALS, f32 gathers: row_gather and K1 launched, no "
+                  "fused_gram")
+        del got, want
 
     # ---- 4. wire-order storage against the classic OOC run ------------------
     up, ip, wu, wi, t_ws = (b[k] for k in ("up", "ip", "wu", "wi", "t_ws"))
@@ -3621,8 +3725,10 @@ def ooc_mesh_rank(mesh, wire, epochs: int, ials: bool = False,
     2. two streamed epochs (``feed_sharded_wire``) from the same start,
        bit-equal to the pinned run after epoch 2, and the host bytes they
        staged;
-    3. with ``ials``: one iALS epoch (lam 0.1, alpha 40) pinned, its
-       launches, against the resident blocked iALS epoch's factors.
+    3. with ``ials``: one iALS epoch (lam 0.1, alpha 40) pinned with bf16
+       gathers (fused_gram's weighted mode) and one with f32 gathers (the
+       row gather and the einsums), their launches, each against the
+       resident blocked iALS epoch's factors with the same gathers.
 
     Every rank's figures are all-gathered; rank 0 returns the lot."""
     import ycnr_tpu_torch
@@ -3710,38 +3816,46 @@ def ooc_mesh_rank(mesh, wire, epochs: int, ials: bool = False,
     same = torch.equal(st.U, U2) and torch.equal(st.V, V2)
     del st, U2, V2
 
-    # 3. one iALS epoch, pinned
-    iln = dict.fromkeys(("spd_solve", "row_gather"), 0)
+    # 3. one iALS epoch, pinned, with bf16 and with f32 gathers
+    keys = ("spd_solve", "fused_gram weighted", "fused_gram", "row_gather")
+    iln = {g: dict.fromkeys(keys, 0) for g in ("bf16", "f32")}
     if ials:
-        iep = om.make_sharded_ooc_epoch(mesh, pinned, IALS["lam"],
-                                        alpha=IALS["alpha"], gather_bf16=True)
-        st = start()
-        b0 = mesh.bytes_moved
-        reset_launches()
-        sync()
-        t0 = time.time()
-        st = iep(st)
-        sync()
-        iln = read_launches()
-        out["ials"] = {"s": time.time() - t0, "bytes": mesh.bytes_moved - b0}
-        g = sh.gather_state(st, meta, mesh)
-        out["ials"]["zero"] = zero_rows(g) and bool((st.U[-1] == 0).all())
-        if mesh.rank == 0:
-            out["ials"]["factor_diff"] = diffs(g, "ref_iU", "ref_iV")
+        out["ials"] = {}
+        for gathers, ref in (("bf16", "i"), ("f32", "f")):
+            iep = om.make_sharded_ooc_epoch(
+                mesh, pinned, IALS["lam"], alpha=IALS["alpha"],
+                gather_bf16=gathers == "bf16")
+            st = start()
+            b0 = mesh.bytes_moved
+            reset_launches()
+            sync()
+            t0 = time.time()
+            st = iep(st)
+            sync()
+            iln[gathers] = read_launches()
+            ia = {"s": time.time() - t0, "bytes": mesh.bytes_moved - b0}
+            g = sh.gather_state(st, meta, mesh)
+            ia["zero"] = zero_rows(g) and bool((st.U[-1] == 0).all())
+            if mesh.rank == 0:
+                ia["factor_diff"] = diffs(g, f"ref_{ref}U", f"ref_{ref}V")
+            out["ials"][gathers] = ia
+            del st, g
     per = torch.tensor(
         [ln["spd_solve"], ln["fused_gram"], ln["row_gather"],
          ln["spd_solve tiled"], peak, float(zero), float(same), pinned_bytes,
-         staged, min(out["bytes"]), max(out["bytes"]), iln["spd_solve"],
-         iln["row_gather"]], dtype=torch.float64, device=dev)
+         staged, min(out["bytes"]), max(out["bytes"])]
+        + [iln[g][k] for g in ("bf16", "f32") for k in keys],
+        dtype=torch.float64, device=dev)
     out["per_rank"] = [x.tolist() for x in mesh.all_gather(per)]
     return out
 
 
 def ials_reference(dev, tu, ti, lays, tmp: str) -> dict:
-    """One resident iALS epoch (lam 0.1, alpha 40, bf16 gathers) over the
-    host blocked layouts ``lays``, ``solve_block`` a block as
-    ``models/ials.py`` walks it, from the main path's start: the paths of
-    its U and V (real rows) as .npy for the rank processes."""
+    """One resident iALS epoch (lam 0.1, alpha 40) over the host blocked
+    layouts ``lays``, ``solve_block`` a block as ``models/ials.py`` walks
+    it, from the main path's start, with bf16 gathers and with f32
+    gathers: the paths of their U and V (real rows) as .npy for the rank
+    processes (ref_iU, ref_iV; ref_fU, ref_fV)."""
     from ycnr_tpu_torch.models.base import (device_layout, init_state,
                                             zero_cold_entities)
     from ycnr_tpu_torch.ops.gram import BlockData, solve_block
@@ -3750,19 +3864,22 @@ def ials_reference(dev, tu, ti, lays, tmp: str) -> dict:
                                                 "rank"))
     lam, alpha = IALS["lam"], IALS["alpha"]
     lu, li = (device_layout(x, torch.float32, dev) for x in lays)
-    st = zero_cold_entities(init_state(n_users, n_items, rank, seed=0,
-                                       device=dev), tu, ti)
-    for E, F, lay in ((st.U, st.V, lu), (st.V, st.U, li)):
-        G = F.T @ F
-        for blk in zip(*lay):
-            eid, rows = solve_block(F, BlockData(*blk), lam,
-                                    gram_weight_alpha=alpha, base_gram=G,
-                                    base_reg=lam, gather_bf16=True)
-            E[eid] = rows
     paths = {}
-    for name, F in (("ref_iU", st.U), ("ref_iV", st.V)):
-        paths[name] = os.path.join(tmp, f"mesh_{name}.npy")
-        np.save(paths[name], F[:-1].cpu().numpy())
+    for ref, bf16 in (("i", True), ("f", False)):
+        st = zero_cold_entities(init_state(n_users, n_items, rank, seed=0,
+                                           device=dev), tu, ti)
+        for E, F, lay in ((st.U, st.V, lu), (st.V, st.U, li)):
+            G = F.T @ F
+            for blk in zip(*lay):
+                eid, rows = solve_block(F, BlockData(*blk), lam,
+                                        gram_weight_alpha=alpha,
+                                        base_gram=G, base_reg=lam,
+                                        gather_bf16=bf16)
+                E[eid] = rows
+        for side, F in (("U", st.U), ("V", st.V)):
+            name = f"ref_{ref}{side}"
+            paths[name] = os.path.join(tmp, f"mesh_{name}.npy")
+            np.save(paths[name], F[:-1].cpu().numpy())
     return paths
 
 
@@ -3837,15 +3954,21 @@ def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
             f"{[round(x, 4) for x in res['streamed_s']]}; on {smi}")
         for r, row in enumerate(res["per_rank"]):
             (k1, fg, rg, k1t, peak, zero, same, pinned, staged, bmin,
-             bmax, ik1, irg) = row
+             bmax) = row[:11]
+            # the iALS epochs' K1, weighted fused_gram, fused_gram and
+            # row_gather launches: bf16 gathers, then f32
+            ib, i32 = row[11:15], row[15:19]
             log(f"{what} rank {r}: K1 {int(k1)}, fused_gram {int(fg)}, "
                 f"row_gather {int(rg)} launches (K1 tiled body "
                 f"{int(k1t)}); peak device memory {int(peak):,} bytes above "
                 f"the rank's start; pinned wire {int(pinned):,} bytes; the "
                 f"streamed pair staged {int(staged):,} bytes; trash and "
                 f"cold rows 0: {bool(zero)}; streamed = pinned: "
-                f"{bool(same)}" + (f"; iALS epoch K1 {int(ik1)}, row_gather "
-                                   f"{int(irg)}" if kw else ""))
+                f"{bool(same)}" + (
+                    f"; iALS epoch K1 / weighted fused_gram / fused_gram / "
+                    f"row_gather launches: bf16 gathers "
+                    f"{[int(x) for x in ib]}, f32 gathers "
+                    f"{[int(x) for x in i32]}" if kw else ""))
             check(k1 > 0 and fg > 0, f"{what} rank {r}: K1 and fused_gram "
                   f"launched")
             check(bool(zero), f"{what} rank {r}: trash and cold rows 0")
@@ -3856,31 +3979,39 @@ def phase_ooc_mesh(dev, tu, ti, tr, lays, mesh: dict, main_rmse, cli: dict,
             check(staged > 0, f"{what} rank {r}: the streamed pair staged "
                   f"its wire")
             if kw:
-                check(ik1 > 0 and irg > 0, f"{what} rank {r}: K1 and "
-                      f"row_gather launched by the iALS epoch")
-    ia = runs["D=2 gloo"]["ials"]
-    log(f"ooc mesh iALS (D=2) epoch 1: {ia['s']:.4f} s, {ia['bytes']:,} "
-        f"bytes through collectives; against the resident blocked iALS "
-        f"epoch: " + "; ".join(
-            f"{k} {fd['scale']:.3e} of the largest |entry|, rows "
-            f"{fd['row']:.3e}" for k, fd in ia["factor_diff"].items()))
-    check(ia["bytes"] == OOC_MESH_BYTES + 64 * 64 * 4,
-          "ooc mesh iALS: A, b and U^T U all-reduced")
-    check(ia["zero"], "ooc mesh iALS: trash and cold rows 0")
-    for side, fd in ia["factor_diff"].items():
-        check(fd["scale"] <= MESH_FACTOR_TOL and fd["row"] <= MESH_FACTOR_TOL,
-              f"ooc mesh iALS: {side} and its every row within "
-              f"{MESH_FACTOR_TOL} of the resident blocked iALS epoch's")
+                check(ib[0] > 0 and ib[1] > 0 and ib[3] == 0,
+                      f"{what} rank {r}: K1 and fused_gram's weighted mode "
+                      f"launched by the bf16 iALS epoch, no row_gather")
+                check(i32[0] > 0 and i32[3] > 0 and i32[2] == 0,
+                      f"{what} rank {r}: K1 and row_gather launched by the "
+                      f"f32 iALS epoch, no fused_gram")
+    for gathers, ia in runs["D=2 gloo"]["ials"].items():
+        what = f"ooc mesh iALS, {gathers} gathers"
+        log(f"{what} (D=2) epoch 1: {ia['s']:.4f} s, {ia['bytes']:,} "
+            f"bytes through collectives; against the resident blocked iALS "
+            f"epoch: " + "; ".join(
+                f"{k} {fd['scale']:.3e} of the largest |entry|, rows "
+                f"{fd['row']:.3e}" for k, fd in ia["factor_diff"].items()))
+        check(ia["bytes"] == OOC_MESH_BYTES + 64 * 64 * 4,
+              f"{what}: A, b and U^T U all-reduced")
+        check(ia["zero"], f"{what}: trash and cold rows 0")
+        for side, fd in ia["factor_diff"].items():
+            check(fd["scale"] <= MESH_FACTOR_TOL
+                  and fd["row"] <= MESH_FACTOR_TOL,
+                  f"{what}: {side} and its every row within "
+                  f"{MESH_FACTOR_TOL} of the resident blocked iALS epoch's")
     cli_s = phase_mesh_cli(cli, main_rmse, tmp, smi,
                            ooc_pinned=runs["D=2 gloo"]["per_rank"][0][7])
     launches = {"spd_solve": 0, "spd_solve tiled": 0, "row_gather": 0,
                 "fused_gram": 0}
     for res in runs.values():
-        for k1, fg, rg, k1t, *_, ik1, irg in res["per_rank"]:
-            launches["spd_solve"] += int(k1 + ik1)
+        for row in res["per_rank"]:
+            k1, fg, rg, k1t = row[:4]
+            ib, i32 = row[11:15], row[15:19]
+            launches["spd_solve"] += int(k1 + ib[0] + i32[0])
             launches["spd_solve tiled"] += int(k1t)
-            launches["fused_gram"] += int(fg)
-            launches["row_gather"] += int(rg + irg)
+            launches["fused_gram"] += int(fg + ib[2] + i32[2])
+            launches["row_gather"] += int(rg + ib[3] + i32[3])
     log(f"ooc mesh: kernel launches over the 4-epoch runs and the iALS "
         f"epoch, every rank: {launches}; cli {cli_s:.1f} s")
     return {"launches": launches, "runs": runs}
@@ -4241,8 +4372,8 @@ def phase_bench(dev, main_rmse, smi: str) -> dict:
     rep = run_in("--algo ials", get_preset("ml20m-ials").ials.rank,
                  TOOL_EPOCHS - 1, algo="ials")
     check(rep["all_launches"]["spd_solve"] > 0
-          and rep["all_launches"]["row_gather"] > 0,
-          "bench --algo ials: row_gather and K1 launched")
+          and rep["all_launches"]["fused_gram"] > 0,
+          "bench --algo ials: fused_gram (weighted) and K1 launched")
     for method in ("batched", "stream"):
         rep = run_in(f"--algo sgd --sgd-method {method}", 64,
                      TOOL_EPOCHS - 1, algo="sgd", sgd_method=method)
@@ -4459,6 +4590,7 @@ def run_phases(dev, name: str, smi: str, lane: "HostLane"):
                      pad_coo(su, si, sr, n_users, n_items, 8192)[:3]) + (
         len(sr),)
     gram = phase_fused_gram(state, dul, dil)
+    gram_iw = phase_fused_gram_weighted(state, dul, dil)
     gram_w = phase_fused_gram_widths(dul, n_items, smi)
     epoch = als_epoch_fn(dul, dil, lam, gather_bf16=True)
     sync()
@@ -4764,6 +4896,14 @@ def run_phases(dev, name: str, smi: str, lane: "HostLane"):
          "max_abs_err": gram["max_abs_err"], "ms": gram["ms"],
          "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
          "bound_by": gram["bound_by"], "library_ms": None},
+        # its weighted mode (iALS), timed on one user phase at w 64; its
+        # launches are counted in the row above
+        {"name": "fused_gram weighted (iALS)", "route": "cuda",
+         "source": "ycnr_tpu_torch/csrc/fused_gram.cu",
+         "replaces": "tools/probe_gather.py:207", "launches": None,
+         "max_abs_err": gram_iw["max_abs_err"], "ms": gram_iw["ms"],
+         "plain_ms": gram_iw["plain_ms"], "bound_ms": gram_iw["bound_ms"],
+         "bound_by": gram_iw["bound_by"], "library_ms": None},
     ] + [
         # fused_gram's wide body, timed on one user phase at w 192 / 256,
         # with the launches of the rank-192 train() runs (resident and out

@@ -176,12 +176,16 @@ def test_phase_refuses_ratings_of_another_dtype(problem):
     ("cuda", torch.float32, None, True, True),
     ("cuda:0", torch.float32, None, True, True),
     ("cpu", torch.float32, None, True, False),
-    ("cuda", torch.float32, ALPHA, True, False),
+    ("cuda", torch.float32, ALPHA, True, True),
     ("cuda", torch.float32, None, False, False),
     ("cuda", torch.float64, None, True, False),
 ])
-def test_uses_fused_only_for_bf16_als_on_cuda(device, dtype, alpha, bf16,
-                                              want):
+def test_uses_fused_only_for_bf16_gathers_into_f32_on_cuda(device, dtype,
+                                                           alpha, bf16,
+                                                           want):
+    """At rank 64 the fused branch runs for ALS-WR and iALS alike (the
+    4-warp body's weighted mode), only with bf16 gathers into f32 factors
+    on CUDA."""
     assert tbp.uses_fused(device, dtype, alpha, bf16, 64) is want
 
 
@@ -232,22 +236,34 @@ def test_rank_136_epoch_matches_jax(gather_bf16):
     assert torch.all(ts2.U[-1] == 0) and torch.all(ts2.V[-1] == 0)
 
 
-def test_fused_branch_equals_bucket_solve_rows(problem):
-    """The main path's branch (fused gather -> Gram with the ridge, then the
-    solve), run on the CPU with the plain versions on the bf16-rating
-    layout, gives bit for bit what bucket_solve_rows gives with bf16
-    gathers on the f32 layout, block by block."""
+@pytest.mark.parametrize("alpha", [None, ALPHA], ids=["als_wr", "ials"])
+def test_fused_branch_equals_bucket_solve_rows(problem, alpha):
+    """The fused branch (fused gather -> Gram with the ridge, for iALS
+    weighted with the phase's symmetric base Gram, then the solve), run on
+    the CPU with the plain versions on the bf16-rating layout, gives bit
+    for bit what bucket_solve_rows gives with bf16 gathers on the f32
+    layout, block by block."""
     _, ts = _states(jnp.float32, torch.float32)
     for lay, F in ((problem["ul"], ts.V), (problem["il"], ts.U)):
         F_g = F.to(torch.bfloat16)
+        G = None if alpha is None else tbp.fused_base(F.T @ F)
         for g, g16 in zip(tbp.device_bucketed(lay, torch.float32, "cpu"),
                           tbp.device_bucketed(lay, torch.float32, "cpu",
                                               rating_dtype=torch.bfloat16)):
             for j in range(g.other_idx.shape[0]):
                 oi, rr, cnt = g.other_idx[j], g.rating[j], g.entity_cnt[j]
                 got = tbp.bucket_fused_rows(F_g, oi, g16.rating[j], cnt,
-                                            LAM)
-                want = tbp.bucket_solve_rows(F_g, oi, rr, cnt, LAM, None,
-                                             None, torch.float32, True)
+                                            LAM, alpha, G)
+                want = tbp.bucket_solve_rows(F_g, oi, rr, cnt, LAM, alpha,
+                                             G, torch.float32, True)
                 assert got.dtype == torch.float32
                 assert torch.equal(got, want)
+
+
+def test_fused_base_is_symmetric_and_keeps_a_symmetric_gram():
+    G = torch.randn(8, 8, dtype=torch.float32)
+    S = tbp.fused_base(G)
+    assert torch.equal(S, S.T)
+    assert torch.equal(tbp.fused_base(S), S)
+    assert tbp.fused_base(None) is None
+

@@ -379,6 +379,130 @@ def test_fused_gram_long_lists_against_float64(dev):
     assert torch.all(b[-1] == 0)
 
 
+def _weighted_inputs(dev, w, ne, R, n=2000, seed=0, scale=0.3):
+    """A bf16 table with a zero trash row n, half-star bf16 ratings, the
+    second half of each list padding, one all-padding entity, and a
+    symmetric base Gram (a factor table's Gram, as iALS's)."""
+    rng = np.random.default_rng(seed)
+    base = np.zeros((n + 1, w), np.float32)
+    base[:n] = rng.normal(0, scale, (n, w))
+    idx = rng.integers(0, n, (ne, R))
+    cnt = rng.integers(R // 3, R + 1, ne)
+    idx[np.arange(R)[None, :] >= cnt[:, None]] = n
+    idx[-1] = n
+    rat = np.where(idx < n, rng.integers(1, 11, (ne, R)) * 0.5, 0.0)
+    table = torch.as_tensor(base, device=dev).bfloat16()
+    V = table.float()
+    G = V.T @ V
+    return (table, torch.as_tensor(idx, device=dev),
+            torch.as_tensor(rat, dtype=torch.float32, device=dev).bfloat16(),
+            0.5 * (G + G.T))
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("w", [10, 64, 100, 128])
+@pytest.mark.parametrize("ne,R", [(300, 32), (40, 600), (50, 5)])
+def test_fused_gram_weighted_within_bound(dev, w, ne, R, with_base):
+    """The weighted mode (iALS, alpha 40) against its plain version within
+    fused_gram_bound and against a float64 sum of the same products
+    within F64_REL; A bit-symmetric; a second run gives the same bits;
+    the padding entity is exactly base + lam I, b = 0; one weighted
+    launch."""
+    table, it, rt, G = _weighted_inputs(dev, w, ne, R, seed=w + R)
+    base = G if with_base else None
+    lam, alpha = 0.1, 40.0
+    f0, w0 = fg.launches, fg.weighted_launches
+    A, b = fg.fused_gram(table, it, rt, lam, alpha=alpha, base=base)
+    A2, b2 = fg.fused_gram(table, it, rt, lam, alpha=alpha, base=base)
+    Ap, bp = fg.fused_gram_reference(table, it, rt, lam, alpha=alpha,
+                                     base=base)
+    torch.cuda.synchronize()
+    assert fg.launches - f0 == 2 and fg.weighted_launches - w0 == 2
+    bA, bb = fg.fused_gram_bound(table[it].float(), rt, lam, alpha=alpha,
+                                 base=base)
+    assert torch.all((A - Ap).abs() <= bA)
+    assert torch.all((b - bp).abs() <= bb)
+    assert max(fg.fused_gram_f64_error(table, it, rt, lam, A, b,
+                                       alpha=alpha, base=base)) <= fg.F64_REL
+    assert torch.equal(A, A.transpose(1, 2))
+    assert torch.equal(A, A2) and torch.equal(b, b2)
+    pad = lam * torch.eye(w, device=dev)
+    if base is not None:
+        pad = base + pad
+    assert torch.equal(A[-1], pad) and torch.all(b[-1] == 0)
+
+
+def test_fused_gram_weighted_long_lists_split_into_parts(dev):
+    """The item phase's longest rung (8 entities of R = 129,872) in the
+    weighted mode: the wrapper splits each list into parts, sums them and
+    adds the base Gram and the ridge once, after; within F64_REL of a
+    float64 sum (which a part lost, or a base added per part, would
+    exceed), bit-symmetric, the padding entity base + lam I exactly."""
+    n, w, ne, R = 26_744, 64, 8, 129_872
+    table, it, rt, G = _weighted_inputs(dev, w, ne, R, n=n, seed=7,
+                                        scale=0.1)
+    lam, alpha = 0.1, 40.0
+    assert fg._parts(ne, R)[0] > 1
+    w0 = fg.weighted_launches
+    A, b = fg.fused_gram(table, it, rt, lam, alpha=alpha, base=G)
+    A2, b2 = fg.fused_gram(table, it, rt, lam, alpha=alpha, base=G)
+    torch.cuda.synchronize()
+    assert fg.weighted_launches - w0 == 2
+    assert max(fg.fused_gram_f64_error(table, it, rt, lam, A, b,
+                                       alpha=alpha, base=G)) <= fg.F64_REL
+    assert torch.equal(A, A.transpose(1, 2))
+    assert torch.equal(A, A2) and torch.equal(b, b2)
+    assert torch.equal(A[-1], G + lam * torch.eye(w, device=dev))
+    assert torch.all(b[-1] == 0)
+
+
+def test_fused_gram_weighted_refuses_the_wide_body(dev):
+    table, it, rt, G = _weighted_inputs(dev, 192, 4, 16, n=50)
+    with pytest.raises(ValueError, match="w <= 128"):
+        fg.fused_gram(table, it, rt, 0.1, alpha=2.0, base=G)
+
+
+def test_ials_rank64_epoch_runs_the_weighted_fused_gram(dev):
+    """A bucketed iALS epoch at rank 64 with bf16 gathers on the card: one
+    weighted fused_gram launch a block, no row gather, K1 for the solve;
+    the factors within 1e-3 of the same epoch on the CPU (the plain
+    einsum route; other summation order) and the trash rows 0."""
+    from ycnr_tpu_torch.models import bucketed_phase as bp
+    from ycnr_tpu_torch.models.base import init_state, zero_cold_entities
+    from ycnr_tpu_torch.ops.bucketed import build_bucketed
+
+    rng = np.random.default_rng(64)
+    nu, ni, k, nnz = 3000, 800, 64, 60_000
+    pairs = np.unique(np.stack([rng.integers(0, nu, nnz),
+                                rng.integers(0, ni, nnz)], 1), axis=0)
+    u, i = pairs[:, 0], pairs[:, 1]
+    r = (rng.integers(1, 11, len(u)) * 0.5).astype(np.float32)
+    ul = build_bucketed(u, i, r, nu, ni, 32, k, max_groups=4)
+    il = build_bucketed(i, u, r, ni, nu, 32, k, max_groups=4)
+    assert bp.uses_fused(dev, torch.float32, 40.0, True, k)
+    blocks = sum(g.other_idx.shape[0] for g in ul + il)
+    out = {}
+    for d in (dev, "cpu"):
+        rdt = torch.bfloat16 if d == dev else None
+        dul = bp.device_bucketed(ul, device=d, rating_dtype=rdt)
+        dil = bp.device_bucketed(il, device=d, rating_dtype=rdt)
+        st = zero_cold_entities(init_state(nu, ni, k, seed=3, device=d),
+                                u, i)
+        g0, f0, s0 = rg.launches, fg.launches, sp.launches
+        w0 = fg.weighted_launches
+        out[str(d)] = bp.ials_epoch_fn(dul, dil, 0.1, 40.0, True)(st)
+        if d == dev:
+            torch.cuda.synchronize()
+            assert rg.launches == g0 and sp.launches - s0 == blocks
+            assert fg.launches - f0 == blocks
+            assert fg.weighted_launches - w0 == blocks
+    got, want = out[str(dev)], out["cpu"]
+    for x, y in zip(got[:2], want[:2]):
+        assert bool(torch.isfinite(x).all()) and not bool(x[-1].any())
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-3,
+                                   atol=1e-3 * y.abs().max().item())
+
+
 def test_fused_branch_refuses_f32_ratings(dev):
     """On CUDA, bf16 ALS-WR runs the fused branch, which reads the layout's
     bf16 ratings as they are and raises on any other."""
@@ -915,12 +1039,15 @@ def test_ooc_decode_on_cuda_equals_cpu(dev, raw):
                         assert torch.equal(x, y.cpu())
 
 
-@pytest.mark.parametrize("algo", ["als", "ials"])
-def test_streamed_epoch_equals_pinned_and_resident(dev, algo):
-    """On the card (bf16 gathers: fused_gram + K1 for ALS-WR, row gather +
-    K1 for iALS) a host-streamed epoch, in chunks of one block so many
-    chunks are in flight, a pinned epoch (RECT and packed) and the
-    resident bucketed epoch give the same bits; the kernels launched."""
+@pytest.mark.parametrize("algo,k", [("als", 32), ("ials", 32), ("ials", 136)],
+                         ids=["als", "ials", "ials_rank136"])
+def test_streamed_epoch_equals_pinned_and_resident(dev, algo, k):
+    """On the card, with bf16 gathers, a host-streamed epoch, in chunks of
+    one block so many chunks are in flight, a pinned epoch (RECT and
+    packed) and the resident bucketed epoch give the same bits. At rank 32
+    that is fused_gram + K1 for ALS-WR and fused_gram's weighted mode + K1
+    for iALS, with no row gather; iALS at rank 136 keeps the row gather,
+    the einsums and K1, with no fused_gram."""
     from ycnr_tpu_torch.models import base, bucketed_phase as bp, ooc
     from ycnr_tpu_torch.ops import bucketed, packed
 
@@ -929,8 +1056,9 @@ def test_streamed_epoch_equals_pinned_and_resident(dev, algo):
     up = packed.build_packed(u, i, r, 3000, 800, **kw)
     ip = packed.build_packed(i, u, r, 800, 3000, **kw)
     alpha = None if algo == "als" else 2.0
-    fused = algo == "als"
-    rdt = torch.bfloat16 if fused else torch.float32
+    fused = bp.uses_fused(dev, torch.float32, alpha, True, k)
+    assert fused == (k <= 128)
+    rdt = torch.bfloat16 if fused else None
     ug = bp.device_bucketed(bucketed.build_bucketed(u, i, r, 3000, 800,
                                                     **kw), device=dev,
                             rating_dtype=rdt)
@@ -939,18 +1067,19 @@ def test_streamed_epoch_equals_pinned_and_resident(dev, algo):
                             rating_dtype=rdt)
 
     def start():
-        return base.init_state(3000, 800, 32, seed=1, device=dev)
+        return base.init_state(3000, 800, k, seed=1, device=dev)
 
-    if fused:
+    if alpha is None:
         ref = bp.als_epoch_fn(ug, ig, 0.05, True)(start())
     else:
-        ref = bp.ials_epoch_fn(ug, ig, 0.1, 2.0, True)(start())
+        ref = bp.ials_epoch_fn(ug, ig, 0.1, alpha, True)(start())
     runs = []
     for wire in ((up, ip), ooc.wire_to_device(up, ip, device=dev)[:2],
                  ooc.wire_to_device(up, ip, pin_format="keep",
                                     device=dev)[:2]):
         g0, f0, s0 = rg.launches, fg.launches, sp.launches
-        if fused:
+        w0 = fg.weighted_launches
+        if alpha is None:
             st = ooc.als_epoch_ooc(start(), *wire, 0.05, gather_bf16=True,
                                    chunk_blocks=1)
         else:
@@ -958,7 +1087,12 @@ def test_streamed_epoch_equals_pinned_and_resident(dev, algo):
                                     gather_bf16=True, chunk_blocks=1)
         torch.cuda.synchronize()
         assert sp.launches > s0
-        assert (fg.launches > f0) if fused else (rg.launches > g0)
+        if fused:
+            assert fg.launches > f0 and rg.launches == g0
+            assert fg.weighted_launches - w0 == (0 if alpha is None
+                                                 else fg.launches - f0)
+        else:
+            assert rg.launches > g0 and fg.launches == f0
         runs.append(st)
     for st in runs:
         assert torch.equal(st.U, ref.U) and torch.equal(st.V, ref.V)
@@ -1041,12 +1175,16 @@ def test_sharded_train_two_gloo_ranks_on_one_card(dev, tmp_path):
 
 # --- out of core on the mesh (parallel/ooc_mesh.py) -------------------------
 
-@pytest.mark.parametrize("algo", ["als", "ials"])
-def test_sharded_ooc_epoch_on_the_card(dev, algo):
+@pytest.mark.parametrize("algo,k", [("als", 32), ("ials", 32), ("ials", 136)],
+                         ids=["als", "ials", "ials_rank136"])
+def test_sharded_ooc_epoch_on_the_card(dev, algo, k):
     """Two gloo thread ranks on cuda:0, bf16 gathers: the streamed tier
-    (chunks of one block) gives the pinned tier's bits; K1 launches, with
-    ``fused_gram`` (ALS-WR) or ``row_gather`` (iALS); the gathered factors
-    lie within 1e-3 of the same epoch's plain version on the CPU (f32,
+    (chunks of one block) gives the pinned tier's bits; K1 launches, at
+    rank 32 with ``fused_gram`` (iALS: its weighted mode, the item phase's
+    partials without base or ridge) and no ``row_gather``, for iALS at
+    rank 136 with ``row_gather`` (the einsum route, ``gather_normal_eq``
+    in the item phase) and no ``fused_gram``; the gathered factors lie
+    within 1e-3 of the same epoch's plain version on the CPU (f32,
     bf16-rounded gathers; other summation order); trash rows 0."""
     from ycnr_tpu_torch.models.base import init_state
     from ycnr_tpu_torch.parallel import ooc_mesh as om
@@ -1060,7 +1198,7 @@ def test_sharded_ooc_epoch_on_the_card(dev, algo):
 
     def run(device, tier):
         def rank(m):
-            st = sh.scatter_state(init_state(3000, 800, 32, seed=1,
+            st = sh.scatter_state(init_state(3000, 800, k, seed=1,
                                              device=device), meta, m)
             if tier == "pinned":
                 ep = om.make_sharded_ooc_epoch(
@@ -1079,10 +1217,16 @@ def test_sharded_ooc_epoch_on_the_card(dev, algo):
         return run_ranks(rank, 2, device=device)
 
     g0, f0, s0 = rg.launches, fg.launches, sp.launches
+    w0 = fg.weighted_launches
     pinned = run(dev, "pinned")
     torch.cuda.synchronize()
     assert sp.launches > s0
-    assert (fg.launches > f0) if algo == "als" else (rg.launches > g0)
+    if k <= 128:
+        assert fg.launches > f0 and rg.launches == g0
+        assert fg.weighted_launches - w0 == (0 if algo == "als"
+                                             else fg.launches - f0)
+    else:
+        assert rg.launches > g0 and fg.launches == f0
     streamed = run(dev, "streamed")
     plain = run("cpu", "pinned")[0]
     for a, b in zip(pinned, streamed):

@@ -183,3 +183,114 @@ def test_f64_check_catches_a_lost_part(drop):
     eA, eb = fg.fused_gram_f64_error(table, it, rt, reg, A.float(),
                                      b.float())
     assert (max(eA, eb) > fg.F64_REL) is drop
+
+
+def _bf16_rne(x32: np.ndarray) -> np.ndarray:
+    """float32 -> bf16 (as float32) rounding to nearest even, by bits: the
+    rounding of the kernel's cvt.rn.bf16.f32."""
+    u = x32.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("alpha", [40.0, 0.3, 7.7])
+def test_weights_round_as_the_kernel_does(alpha):
+    """wt = bf16(f32(alpha) * r) and c = bf16(1 + wt), each rounded once to
+    nearest even from f32: what torch's bf16 arithmetic with a float gives
+    (the einsum route) and what the weighted kernel computes."""
+    r = np.concatenate([np.arange(0, 5.5, 0.5),
+                        np.random.default_rng(0).uniform(0, 5, 500)])
+    r16 = torch.as_tensor(r, dtype=torch.float32).bfloat16()
+    wt, c = fg.weights(r16, alpha, torch.bfloat16)
+    assert wt.dtype == c.dtype == torch.bfloat16
+    rf = r16.float().numpy()
+    want_wt = _bf16_rne(np.float32(alpha) * rf)
+    want_c = _bf16_rne(np.float32(1.0) + want_wt)
+    np.testing.assert_array_equal(wt.float().numpy(), want_wt)
+    np.testing.assert_array_equal(c.float().numpy(), want_c)
+
+
+def test_weighted_products_split_exactly_into_two_bf16():
+    """The weighted kernel's split: p = wt F (two bf16 values) is exact in
+    f32; hi = p with its low 16 bits cleared and lo = p - hi are both bf16
+    values, and hi F_j + lo F_j = wt F_i F_j exactly (float64)."""
+    rng = np.random.default_rng(1)
+    F = torch.as_tensor(rng.normal(0, 0.3, 4096),
+                        dtype=torch.float32).bfloat16().float()
+    Fj = torch.as_tensor(rng.normal(0, 0.3, 4096),
+                         dtype=torch.float32).bfloat16().float()
+    wt, _ = fg.weights(torch.as_tensor(rng.uniform(0, 5, 4096),
+                                       dtype=torch.float32).bfloat16(),
+                       40.0, torch.bfloat16)
+    p = F * wt.float()
+    assert torch.equal(p.double(), F.double() * wt.double())
+    hi = (p.view(torch.int32) & -65536).view(torch.float32)
+    lo = p - hi
+    assert torch.equal(hi.bfloat16().float(), hi)
+    assert torch.equal(lo.bfloat16().float(), lo)
+    assert torch.equal(hi.double() + lo.double(), p.double())
+    assert torch.equal(hi.double() * Fj.double() + lo.double() * Fj.double(),
+                       p.double() * Fj.double())
+
+
+@pytest.mark.parametrize("R,ne,w", [(32, 64, 64), (200, 12, 64),
+                                    (1000, 3, 128), (50, 20, 10)])
+def test_weighted_plain_version_against_float64(R, ne, w):
+    """fused_gram(..., alpha=, base=) on the CPU: within the f32 sum's own
+    error of a float64 sum of the same products (the weights rounded as
+    the kernel rounds them), A symmetric, and the all-padding entity
+    exactly base + lam I with b = 0; within fused_gram_bound of the f64
+    sum too."""
+    base, idx, rat = _inputs(500, w, ne, R, seed=R + w)
+    rng = np.random.default_rng(w)
+    table = torch.as_tensor(base).bfloat16()
+    it, rt = torch.as_tensor(idx), torch.as_tensor(rat).bfloat16()
+    M = torch.as_tensor(rng.normal(0, 1, (w, w)), dtype=torch.float32)
+    G = 0.5 * (M @ M.T + (M @ M.T).T)
+    lam, alpha = 0.1, 40.0
+    A, b = fg.fused_gram(table, it, rt, lam, alpha=alpha, base=G)
+    assert A.dtype == b.dtype == torch.float32
+    assert torch.equal(A, A.transpose(1, 2))
+    eye = torch.eye(w)
+    assert torch.equal(A[-1], G + lam * eye) and torch.all(b[-1] == 0)
+    eA, eb = fg.fused_gram_f64_error(table, it, rt, lam, A, b, alpha=alpha,
+                                     base=G)
+    assert eA <= (R + 4) * 2.0 ** -24 and eb <= (R + 4) * 2.0 ** -24
+    # the bound between kernel and plain version also covers plain - f64
+    F = table[it].double()
+    wt, c = fg.weights(rt, alpha, torch.bfloat16)
+    A64 = (torch.einsum("urk,urm->ukm", F * wt.double()[..., None], F)
+           + G.double() + lam * eye.double())
+    b64 = torch.einsum("urk,ur->uk", F, c.double())
+    bA, bb = fg.fused_gram_bound(F, rt, lam, alpha=alpha, base=G)
+    assert torch.all((A.double() - A64).abs() <= bA)
+    assert torch.all((b.double() - b64).abs() <= bb)
+    # without base and ridge: bucket_normal_eq's weighted partials
+    A0, b0 = fg.fused_gram(table, it, rt, alpha=alpha)
+    Fg = jnp.asarray(base, jnp.bfloat16)[jnp.asarray(idx)]
+    Aj, bj = jbp.bucket_normal_eq(Fg, jnp.asarray(rat), alpha, jnp.float32,
+                                  True)
+    sA = torch.einsum("urk,urm->ukm", F.abs() * wt.double()[..., None],
+                      F.abs())
+    tol = 2 * R * 2.0 ** -24
+    assert torch.all((A0.double() - torch.as_tensor(
+        np.asarray(Aj, np.float64))).abs() <= tol * sA)
+    assert torch.all((b0.double() - torch.as_tensor(
+        np.asarray(bj, np.float64))).abs()
+        <= tol * torch.einsum("urk,ur->uk", F.abs(), c.double()))
+
+
+def test_weighted_mode_refusals_on_the_cuda_entry(monkeypatch):
+    """The weighted mode takes w <= NARROW_W and one float ridge; a base
+    Gram or a float ridge only in it (checked before any launch)."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    for w, kw, err in [(129, dict(alpha=2.0), "w <= 128"),
+                       (16, dict(alpha=2.0, reg=torch.ones(2)), "one float"),
+                       (16, dict(base=torch.zeros(16, 16)), "weighted"),
+                       (16, dict(reg=0.1), "weighted")]:
+        base, idx, rat = _inputs(20, w, 2, 4, seed=0)
+        with pytest.raises((ValueError, TypeError), match=err):
+            fg.fused_gram_cuda(torch.as_tensor(base).bfloat16(),
+                               torch.as_tensor(idx),
+                               torch.as_tensor(rat).bfloat16(), **kw)
+

@@ -188,6 +188,8 @@ def test_uses_fused_takes_ranks_129_to_256(w):
 @pytest.mark.parametrize("alpha,bf16,dtype,w", [
     (None, True, torch.float32, 257),  # past the wide body
     (40.0, True, torch.float32, 192),  # iALS
+    (40.0, True, torch.float32, 129),  # iALS past the weighted 4-warp body
+    (2.0, True, torch.float32, 192),
     (None, False, torch.float32, 192),  # f32 gathers
     (None, True, torch.float64, 192),  # f64 factors
     (None, True, torch.float32, 512),

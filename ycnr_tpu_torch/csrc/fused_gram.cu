@@ -48,6 +48,30 @@
 // warp takes every step. Either way the order of every sum is fixed, so
 // runs give equal bits. Padding slots and slots past R add exactly 0; a
 // padding entity comes out as A = reg I, b = 0.
+//
+// Weighted mode (kWeighted, w <= 128 only): the implicit-feedback normal
+// equations of iALS, with alpha, an optional base Gram G [w, w]
+// (symmetric: the caller symmetrizes it once a phase) and a constant ridge,
+//
+//   wt = bf16(alpha r), c = bf16(1 + wt)        per slot, from the rating
+//   A[e] = sum_r wt F F^T + G + ridge I,   b[e] = sum_r c F.
+//
+// wt and c are computed as each stage's ratings are staged (c takes the
+// rating's place in b's n = 8 product). Each product wt F_i F_j stays
+// exact, as in an f32 einsum of the widened values: wt F_i is a product
+// of two bf16 values, at most 16 significant bits, exact in f32, and
+// splits exactly into hi = its top 8 bits (truncated) and lo = the rest,
+// both bf16. The A fragment of tile ti is weighted into a hi and a lo
+// fragment, and both are multiplied against the unweighted B fragment of
+// tj: two mma steps a 16-slot step, each of exact products. They go
+// into a zeroed step sum (lo first, then hi), which one f32 add puts on
+// the running sum: a lo product is ~2^-8 of its hi product, and added
+// to the running sum itself it would lose its low bits to the tensor
+// core's alignment (truncation, all of one sign) in every step, which
+// on the card cost ~10x the error of the plain mode. Only lower tiles
+// are kept and mirrored, so A stays bit-symmetric. G and the ridge are
+// added in the epilogue, after the partials are summed; a padding entity
+// comes out as G + ridge I, b = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +106,9 @@ struct Cfg {
   static constexpr int kRatOff =
       ((kStageBytes > kGramBytes ? kStageBytes : kGramBytes) + 15) / 16 * 16;
   static constexpr int kSmem = kRatOff + kStages * kStageSlots * 2;
+  // weighted mode: [kStages][kStageSlots] bf16 weights wt after the
+  // ratings (which then hold c = 1 + wt)
+  static constexpr int kSmemW = kSmem + kStages * kStageSlots * 2;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -127,14 +154,51 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int T, typename Idx>
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+// A rating's weights, round to nearest as bf16 arithmetic on floats
+// rounds: wt = bf16(alpha r) -> bits, and the rating's bits replaced by
+// c = bf16(1 + wt).
+__device__ __forceinline__ unsigned short weigh(unsigned short& r,
+                                                float alpha) {
+  const __nv_bfloat16 wt =
+      __float2bfloat16_rn(alpha * __uint_as_float(uint32_t(r) << 16));
+  const unsigned short wb = __bfloat16_as_ushort(wt);
+  r = __bfloat16_as_ushort(
+      __float2bfloat16_rn(1.0f + __uint_as_float(uint32_t(wb) << 16)));
+  return wb;
+}
+
+// Two bf16 values f (packed) times their slots' weights w0, w1: the exact
+// f32 products split into hi (top 8 significant bits, truncated) and lo
+// (the exact rest), each packed as two bf16.
+__device__ __forceinline__ void weigh_pair(uint32_t f, float w0, float w1,
+                                           uint32_t& hi, uint32_t& lo) {
+  const float p0 = bf16_lo(f) * w0;
+  const float p1 = bf16_hi(f) * w1;
+  const uint32_t u0 = __float_as_uint(p0), u1 = __float_as_uint(p1);
+  hi = __byte_perm(u0, u1, 0x7632);
+  const float r0 = p0 - __uint_as_float(u0 & 0xffff0000u);
+  const float r1 = p1 - __uint_as_float(u1 & 0xffff0000u);
+  lo = __byte_perm(__float_as_uint(r0), __float_as_uint(r1), 0x7632);
+}
+
+template <int T, typename Idx, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
                   const Idx* __restrict__ idx,
                   const __nv_bfloat16* __restrict__ rat,
                   const float* __restrict__ reg, float* __restrict__ A,
                   float* __restrict__ b, int R_all, int parts, int R_part,
-                  int w, long long n_rows, int vec) {
+                  int w, long long n_rows, int vec,
+                  const float* __restrict__ gram_base, float alpha,
+                  float ridge) {
   using C = Cfg<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   // [kStages][kStageSlots][kRow] bf16 staged rows, slot-major
@@ -142,8 +206,10 @@ fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
   // after the last stage: one partial per slot group, each the lower
   // tiles of A [kW16][kS] then b [kW16]
   float* S = reinterpret_cast<float*>(smem);
-  // [kStages][kStageSlots] bf16 ratings
+  // [kStages][kStageSlots] bf16 ratings (weighted: c = 1 + wt)
   unsigned short* s_rat = reinterpret_cast<unsigned short*>(smem + C::kRatOff);
+  // weighted: [kStages][kStageSlots] bf16 weights wt
+  unsigned short* s_wt = reinterpret_cast<unsigned short*>(smem + C::kSmem);
   const unsigned short* tb = reinterpret_cast<const unsigned short*>(table);
 
   const int t = threadIdx.x;
@@ -192,7 +258,11 @@ fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
     const int ns = min(kStageSlots, R - s0);
     unsigned short* dst = rows + buf * kStageSlots * C::kRow;
     if (vec) {
-      if (t < kStageSlots) s_rat[buf * kStageSlots + t] = nrat;
+      if (t < kStageSlots) {
+        unsigned short r = nrat;
+        if constexpr (kWeighted) s_wt[buf * kStageSlots + t] = weigh(r, alpha);
+        s_rat[buf * kStageSlots + t] = r;
+      }
 #pragma unroll
       for (int k = 0; k < C::kQ; ++k) {
         const int q = t + k * kThreads;
@@ -214,7 +284,9 @@ fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
       }
     } else {  // rows not whole 16-byte chunks: plain loads
       if (t < kStageSlots) {
-        s_rat[buf * kStageSlots + t] = t < ns ? re[s0 + t] : 0;
+        unsigned short r = t < ns ? re[s0 + t] : 0;
+        if constexpr (kWeighted) s_wt[buf * kStageSlots + t] = weigh(r, alpha);
+        s_rat[buf * kStageSlots + t] = r;
       }
       for (int q = t; q < kStageSlots * C::kW16; q += kThreads) {
         const int s = q / C::kW16;
@@ -288,19 +360,56 @@ fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
       const unsigned short* base = src + (k0 + lrow) * C::kRow + lcol;
 #pragma unroll
       for (int ti = 0; ti < T; ++ti) ldsm_x4_trans(base + 16 * ti, fr[ti]);
+      if constexpr (kWeighted) {
+        // this lane's A-fragment columns are slots k0 + 2 (lane & 3) + {0,
+        // 1} (registers 0, 1) and 8 more (registers 2, 3)
+        const uint32_t* wt2 =
+            reinterpret_cast<const uint32_t*>(s_wt + buf * kStageSlots);
+        const uint32_t wa = wt2[k0 / 2 + (lane & 3)];
+        const uint32_t wb = wt2[k0 / 2 + 4 + (lane & 3)];
+        const float w0 = bf16_lo(wa), w1 = bf16_hi(wa);
+        const float w8 = bf16_lo(wb), w9 = bf16_hi(wb);
 #pragma unroll
-      for (int ti = 0; ti < T; ++ti) {
+        for (int ti = 0; ti < T; ++ti) {
+          uint32_t hi[4], lo[4];  // wt F^T tile ti, split exactly
+          weigh_pair(fr[ti][0], w0, w1, hi[0], lo[0]);
+          weigh_pair(fr[ti][1], w0, w1, hi[1], lo[1]);
+          weigh_pair(fr[ti][2], w8, w9, hi[2], lo[2]);
+          weigh_pair(fr[ti][3], w8, w9, hi[3], lo[3]);
 #pragma unroll
-        for (int tj = 0; tj <= ti; ++tj) {
-          const int tt = ti * (ti + 1) / 2 + tj;
-          if (tt % C::kTG == tg) {
-            // F tile tj as k16n8 B fragments: the same registers
-            mma_bf16(acc[tt / C::kTG][0], fr[ti], fr[tj][0], fr[tj][2]);
-            mma_bf16(acc[tt / C::kTG][1], fr[ti], fr[tj][1], fr[tj][3]);
+          for (int tj = 0; tj <= ti; ++tj) {
+            const int tt = ti * (ti + 1) / 2 + tj;
+            if (tt % C::kTG == tg) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                // the step's sum apart (lo, then hi on top), then one
+                // rounded add: no product is cut to the running sum's ulp
+                float st[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                mma_bf16(st, lo, fr[tj][h], fr[tj][h + 2]);
+                mma_bf16(st, hi, fr[tj][h], fr[tj][h + 2]);
+                float(&a)[4] = acc[tt / C::kTG][h];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) a[k] += st[k];
+              }
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int ti = 0; ti < T; ++ti) {
+#pragma unroll
+          for (int tj = 0; tj <= ti; ++tj) {
+            const int tt = ti * (ti + 1) / 2 + tj;
+            if (tt % C::kTG == tg) {
+              // F tile tj as k16n8 B fragments: the same registers
+              mma_bf16(acc[tt / C::kTG][0], fr[ti], fr[tj][0], fr[tj][2]);
+              mma_bf16(acc[tt / C::kTG][1], fr[ti], fr[tj][1], fr[tj][3]);
+            }
           }
         }
       }
-      // b: B column 0 (lanes 0-3) holds the ratings of slots k0..k0+15
+      // b: B column 0 (lanes 0-3) holds the ratings (weighted: c) of slots
+      // k0..k0+15
       const uint32_t rb0 = lane < 4 ? rat2[k0 / 2 + lane] : 0u;
       const uint32_t rb1 = lane < 4 ? rat2[k0 / 2 + 4 + lane] : 0u;
 #pragma unroll
@@ -344,7 +453,8 @@ fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
   __syncthreads();
 
   // Epilogue: the partials summed in slot-group order, the lower triangle
-  // mirrored, the ridge added on the diagonal.
+  // mirrored, (weighted) the base Gram added, the ridge added on the
+  // diagonal.
   auto gram = [&](int i, int j) {  // i >= j
     float v = S[i * C::kS + j];
 #pragma unroll
@@ -352,7 +462,7 @@ fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
     return v;
   };
   float* Ae = A + static_cast<long long>(blockIdx.x) * w * w;
-  const float rg = reg != nullptr ? reg[e] : 0.0f;
+  const float rg = kWeighted ? ridge : reg != nullptr ? reg[e] : 0.0f;
   if ((w & 3) == 0) {  // 16-byte stores
     for (int q = 4 * t; q < w * w; q += 4 * kThreads) {
       const int i = q / w;
@@ -362,7 +472,22 @@ fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
       for (int u = 0; u < 4; ++u) {
         const int jj = j + u;
         v[u] = i >= jj ? gram(i, jj) : gram(jj, i);
-        if (i == jj) v[u] += rg;
+        if constexpr (!kWeighted) {
+          if (i == jj) v[u] += rg;
+        }
+      }
+      if constexpr (kWeighted) {  // partials + G, then the ridge
+        if (gram_base != nullptr) {
+          const float4 gv = *reinterpret_cast<const float4*>(gram_base + q);
+          v[0] += gv.x;
+          v[1] += gv.y;
+          v[2] += gv.z;
+          v[3] += gv.w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (i == j + u) v[u] += rg;
+        }
       }
       *reinterpret_cast<float4*>(Ae + q) = make_float4(v[0], v[1], v[2], v[3]);
     }
@@ -371,6 +496,9 @@ fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
       const int i = q / w;
       const int j = q - i * w;
       float v = i >= j ? gram(i, j) : gram(j, i);
+      if constexpr (kWeighted) {
+        if (gram_base != nullptr) v += gram_base[q];
+      }
       if (i == j) v += rg;
       Ae[q] = v;
     }
@@ -383,35 +511,58 @@ fused_gram_kernel(const __nv_bfloat16* __restrict__ table,
   }
 }
 
-template <int T, typename Idx>
+// The weighted mode's extra inputs (unused by the plain instantiation).
+struct Weights {
+  const float* base;  // [w, w] f32, symmetric, or null
+  float alpha;
+  float ridge;  // the constant ridge (reg is null in this mode)
+};
+
+template <int T, typename Idx, bool kW>
 int launch_t(const void* table, const void* idx, const void* rat,
              const float* reg, float* A, float* b, long long ne, int R,
              int parts, int R_part, int w, long long n_rows, int vec,
-             cudaStream_t stream) {
+             Weights wts, cudaStream_t stream) {
   using C = Cfg<T>;
-  static_assert(C::kSmem <= 232448, "shared memory");
-  auto kern = fused_gram_kernel<T, Idx>;
-  if (C::kSmem > 48 * 1024) {
+  constexpr int kSmem = kW ? C::kSmemW : C::kSmem;
+  static_assert(kSmem <= 232448, "shared memory");
+  auto kern = fused_gram_kernel<T, Idx, kW>;
+  if (kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
   }
-  kern<<<static_cast<unsigned>(ne * parts), kThreads, C::kSmem, stream>>>(
+  kern<<<static_cast<unsigned>(ne * parts), kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(table), static_cast<const Idx*>(idx),
       static_cast<const __nv_bfloat16*>(rat), reg, A, b, R, parts, R_part, w,
-      n_rows, vec);
+      n_rows, vec, wts.base, wts.alpha, wts.ridge);
   return cudaGetLastError();
+}
+
+template <int T, bool kW>
+int launch_w(const void* table, const void* idx, const void* rat,
+             const float* reg, float* A, float* b, long long ne, int R,
+             int parts, int R_part, int w, long long n_rows, int idx64,
+             int vec, Weights wts, cudaStream_t stream) {
+  return idx64 ? launch_t<T, long long, kW>(table, idx, rat, reg, A, b, ne,
+                                            R, parts, R_part, w, n_rows, vec,
+                                            wts, stream)
+               : launch_t<T, int, kW>(table, idx, rat, reg, A, b, ne, R,
+                                      parts, R_part, w, n_rows, vec, wts,
+                                      stream);
 }
 
 template <int T>
 int launch(const void* table, const void* idx, const void* rat,
            const float* reg, float* A, float* b, long long ne, int R,
            int parts, int R_part, int w, long long n_rows, int idx64, int vec,
-           cudaStream_t stream) {
-  return idx64 ? launch_t<T, long long>(table, idx, rat, reg, A, b, ne, R,
-                                        parts, R_part, w, n_rows, vec, stream)
-               : launch_t<T, int>(table, idx, rat, reg, A, b, ne, R, parts,
-                                  R_part, w, n_rows, vec, stream);
+           const Weights* wts, cudaStream_t stream) {
+  return wts != nullptr
+             ? launch_w<T, true>(table, idx, rat, reg, A, b, ne, R, parts,
+                                 R_part, w, n_rows, idx64, vec, *wts, stream)
+             : launch_w<T, false>(table, idx, rat, reg, A, b, ne, R, parts,
+                                  R_part, w, n_rows, idx64, vec, Weights{},
+                                  stream);
 }
 
 // ---------------------------------------------------------------------
@@ -1133,23 +1284,16 @@ int launch_wide(const void* table, const void* idx, const void* rat,
                                          stream);
 }
 
-}  // namespace
-
-// table [n_rows, w] bf16, idx [ne, R] int32 or int64 (idx64), rat [ne, R]
-// bf16, reg [ne] f32 or null. Each entity's slots are cut into `parts`
-// parts of R_part slots (the last may be shorter; 1 part: the whole list)
-// -> A [ne * parts, w, w] f32, b [ne * parts, w] f32, one per (entity,
-// part), with the ridge on every part (pass it with one part only).
-// w <= 128 runs fused_gram_kernel, 128 < w <= 256 fused_gram_wide_kernel.
-extern "C" int ycnr_fused_gram(const void* table, const void* idx,
-                               const void* rat, const float* reg, float* A,
-                               float* b, long long ne, int R, int parts,
-                               int R_part, int w, long long n_rows, int idx64,
-                               cudaStream_t stream) {
+// Both entries: validate, pick the body and the tile count.
+int dispatch(const void* table, const void* idx, const void* rat,
+             const float* reg, float* A, float* b, long long ne, int R,
+             int parts, int R_part, int w, long long n_rows, int idx64,
+             const Weights* wp, cudaStream_t stream) {
   if (ne < 1 || R < 1 || parts < 1 || R_part < 1 ||
       static_cast<long long>(parts - 1) * R_part >= R ||
       static_cast<long long>(parts) * R_part < R ||
-      ne * parts > 0x7fffffffLL || w < 1 || w > kMaxW || n_rows < 1) {
+      ne * parts > 0x7fffffffLL || w < 1 || w > kMaxW || n_rows < 1 ||
+      (wp != nullptr && w > kNarrowW)) {
     return cudaErrorInvalidValue;
   }
   // whole 16-byte rows for cp.async; otherwise plain loads
@@ -1165,7 +1309,7 @@ extern "C" int ycnr_fused_gram(const void* table, const void* idx,
 #define YCNR_GRAM_CASE(T)                                                   \
   case T:                                                                   \
     return launch<T>(table, idx, rat, reg, A, b, ne, R, parts, R_part, w,   \
-                     n_rows, idx64, vec, stream);
+                     n_rows, idx64, vec, wp, stream);
     YCNR_GRAM_CASE(1)
     YCNR_GRAM_CASE(2)
     YCNR_GRAM_CASE(3)
@@ -1175,7 +1319,39 @@ extern "C" int ycnr_fused_gram(const void* table, const void* idx,
     YCNR_GRAM_CASE(7)
     default:
       return launch<8>(table, idx, rat, reg, A, b, ne, R, parts, R_part, w,
-                       n_rows, idx64, vec, stream);
+                       n_rows, idx64, vec, wp, stream);
 #undef YCNR_GRAM_CASE
   }
+}
+
+}  // namespace
+
+// table [n_rows, w] bf16, idx [ne, R] int32 or int64 (idx64), rat [ne, R]
+// bf16, reg [ne] f32 or null. Each entity's slots are cut into `parts`
+// parts of R_part slots (the last may be shorter; 1 part: the whole list)
+// -> A [ne * parts, w, w] f32, b [ne * parts, w] f32, one per (entity,
+// part), with the ridge on every part (pass it with one part only).
+// w <= 128 runs fused_gram_kernel, 128 < w <= 256 fused_gram_wide_kernel.
+extern "C" int ycnr_fused_gram(const void* table, const void* idx,
+                               const void* rat, const float* reg, float* A,
+                               float* b, long long ne, int R, int parts,
+                               int R_part, int w, long long n_rows, int idx64,
+                               cudaStream_t stream) {
+  return dispatch(table, idx, rat, reg, A, b, ne, R, parts, R_part, w, n_rows,
+                  idx64, nullptr, stream);
+}
+
+// The weighted mode (w <= 128 only): the same arguments less reg, then
+// the base Gram base [w, w] f32 (symmetric, or null),
+// alpha and the constant ridge (base and ridge likewise on every part).
+extern "C" int ycnr_fused_gram_weighted(const void* table, const void* idx,
+                                        const void* rat, float* A, float* b,
+                                        long long ne, int R, int parts,
+                                        int R_part, int w, long long n_rows,
+                                        int idx64, cudaStream_t stream,
+                                        const float* base, float alpha,
+                                        float ridge) {
+  const Weights wts{base, alpha, ridge};
+  return dispatch(table, idx, rat, nullptr, A, b, ne, R, parts, R_part, w,
+                  n_rows, idx64, &wts, stream);
 }

@@ -7,7 +7,9 @@ product over the R axis. A phase walks each group block by block: gather
 the other factor's rows (the row-gather kernel on CUDA), build the normal
 equations, run the guarded batched solve (K1 on CUDA) and write the rows
 back. For the main path, bf16 ALS-WR, the gather, the normal equations and
-the ridge are one fused gather -> Gram kernel whose A goes straight to K1.
+the ridge are one fused gather -> Gram kernel whose A goes straight to K1;
+bf16 iALS up to rank 128 runs the same kernel in its weighted mode, with
+the base Gram and the ridge in its epilogue.
 
 The JAX package's scans become Python loops. A phase writes its solved rows
 into ``E`` in place: blocks of one phase read only the other factor, so the
@@ -23,7 +25,8 @@ import torch
 
 from ycnr_tpu_torch import resolve_device
 from ycnr_tpu_torch.models.base import MFState, rmse_padded
-from ycnr_tpu_torch.ops.fused_gram import MAX_W, fused_gram
+from ycnr_tpu_torch.ops.fused_gram import (MAX_W, NARROW_W, fused_gram,
+                                           weights)
 from ycnr_tpu_torch.ops.gram import guarded_batched_solve
 from ycnr_tpu_torch.ops.row_gather import row_gather
 from ycnr_tpu_torch.ops.spd_solve import spd_solve
@@ -65,15 +68,28 @@ def device_bucketed(groups, dtype=torch.float32, device=None,
 
 def uses_fused(device, dtype, alpha, gather_bf16: bool, width: int) -> bool:
     """Whether ``phase_bucketed`` runs the fused branch for factors of
-    ``dtype`` and rank ``width`` on ``device``: ALS-WR (``alpha`` None)
-    with bf16 gathers into f32 factors on CUDA, at a width the fused
-    gather -> Gram kernel takes (``fused_gram.MAX_W``, 256: its 4-warp
-    body up to 128, its wide body above). Its layouts then hold bf16
-    ratings; every other case (iALS, f32 gathers, w > 256) reads them in
-    the factors' dtype and runs the row gather, the einsums and K1, as the
-    JAX package's gather -> Gram is an XLA einsum at every width."""
-    return (torch.device(device).type == "cuda" and alpha is None
-            and gather_bf16 and dtype == torch.float32 and width <= MAX_W)
+    ``dtype`` and rank ``width`` on ``device``: bf16 gathers into f32
+    factors on CUDA, at a width the fused gather -> Gram kernel takes for
+    the algorithm. ALS-WR (``alpha`` None) up to ``fused_gram.MAX_W``,
+    256 (its 4-warp body up to 128, its wide body above); iALS up to
+    ``NARROW_W``, 128, where the 4-warp body has its weighted mode
+    (confidence weights, base Gram and ridge in the kernel). Its layouts
+    then hold bf16 ratings; every other case (f32 gathers, iALS above 128,
+    w > 256) reads them in the factors' dtype and runs the row gather, the
+    einsums and K1, as the JAX package's gather -> Gram is an XLA einsum at
+    every width."""
+    return (torch.device(device).type == "cuda" and gather_bf16
+            and dtype == torch.float32
+            and width <= (MAX_W if alpha is None else NARROW_W))
+
+
+def fused_base(base_gram: Optional[torch.Tensor]):
+    """The fused branch's base Gram, once a phase: 0.5 (G + G^T), so that
+    the kernel's A stays bit-symmetric whatever G's own bits (a symmetric
+    G is returned as the same bits). None stays None."""
+    if base_gram is None:
+        return None
+    return 0.5 * (base_gram + base_gram.transpose(0, 1))
 
 
 def bucket_solve_rows(F_g, oi, rr, cnt, lam, alpha, base_gram, acc_t,
@@ -108,9 +124,10 @@ def bucket_normal_eq(Fg, rr, alpha, acc_t, gather_bf16):
         A = torch.einsum("urk,urm->ukm", F, F)
         b = torch.einsum("urk,ur->uk", F, rr.to(acc_t))
     else:
-        w = alpha * rr  # bf16 stays bf16, as in the reference
+        # bf16 stays bf16, as in the reference; the fused kernel's rounding
+        w, c = weights(rr, alpha, Fg.dtype)
         A = torch.einsum("urk,urm->ukm", F * w.to(acc_t)[..., None], F)
-        b = torch.einsum("urk,ur->uk", F, (1.0 + w).to(Fg.dtype).to(acc_t))
+        b = torch.einsum("urk,ur->uk", F, c.to(acc_t))
         # padding rows gather the zero factor row, so the +1 in the rhs
         # weight contributes nothing there
     return A, b
@@ -126,17 +143,28 @@ def bucket_finish_solve(A, b, cnt, lam, alpha, base_gram):
     return guarded_batched_solve(A, b, reg.to(A.dtype))
 
 
-def bucket_fused_rows(F_g, oi, rr16, cnt, lam) -> torch.Tensor:
-    """The main path's block: bf16 ALS-WR normal equations with the ridge
-    ``lam * cnt + (cnt == 0)`` from the fused gather -> Gram, then the
-    solve. F_g the bf16 other factor, oi [NE, R], rr16 [NE, R] bf16
-    ratings, cnt [NE] f32. ``fused_gram``'s A already holds the ridge and
-    is symmetric, so no ``guarded_batched_solve`` pass runs; on the CPU
-    both steps are their plain versions, and the result equals
-    ``bucket_solve_rows`` with bf16 gathers bit for bit. A span each step,
-    as there."""
+def bucket_fused_rows(F_g, oi, rr16, cnt, lam, alpha=None,
+                      base_gram=None) -> torch.Tensor:
+    """The fused branch's block: bf16 normal equations from the fused
+    gather -> Gram, then the solve. F_g the bf16 other factor, oi [NE, R],
+    rr16 [NE, R] bf16 ratings, cnt [NE] f32.
+
+    ALS-WR (``alpha`` None): the ridge ``lam * cnt + (cnt == 0)``. iALS:
+    the kernel's weighted mode, A = sum wt F F^T + base_gram + lam I and b
+    = sum c F with wt = bf16(alpha r), c = bf16(1 + wt); each product
+    exact, as in the einsum route (``ops/fused_gram`` has the argument and
+    the bound). ``base_gram`` is the phase's G, symmetric
+    (``fused_base``). ``fused_gram``'s A already holds the ridge (and
+    base) and is symmetric, so no ``guarded_batched_solve`` pass runs; on
+    the CPU both steps are their plain versions, and the result equals
+    ``bucket_solve_rows`` with bf16 gathers (and that G) bit for bit. A
+    span each step, as there."""
     with span("normal_eq"):
-        A, b = fused_gram(F_g, oi, rr16, reg=lam * cnt + (cnt == 0))
+        if alpha is None:
+            A, b = fused_gram(F_g, oi, rr16, reg=lam * cnt + (cnt == 0))
+        else:
+            A, b = fused_gram(F_g, oi, rr16, reg=float(lam), alpha=alpha,
+                              base=base_gram)
     with span("solve"):
         return spd_solve(A, b)
 
@@ -154,10 +182,11 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
     equations.
 
     On CUDA, ALS-WR with bf16 gathers into an f32 E of rank <= 256 (the
-    main path at 64; ranks 129-256 through the kernel's wide body) runs
-    ``bucket_fused_rows``: the fused gather -> Gram kernel with the ridge
-    in its epilogue, then K1; its layouts hold bf16 ratings
-    (``uses_fused``).
+    main path at 64; ranks 129-256 through the kernel's wide body), and
+    iALS likewise at rank <= 128, run ``bucket_fused_rows``: the fused
+    gather -> Gram kernel with the ridge (iALS: the weights, the base Gram
+    made symmetric once a phase, and the ridge) in its epilogue, then K1;
+    their layouts hold bf16 ratings (``uses_fused``).
     Every other case gathers with the row-gather kernel
     (``ops/row_gather.py``) and runs ``bucket_normal_eq`` and
     ``guarded_batched_solve``, with ratings in E's dtype. On the CPU every
@@ -171,6 +200,8 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
     F_g = F.to(torch.bfloat16) if gather_bf16 else F
     fused = uses_fused(E.device, E.dtype, alpha, gather_bf16, E.shape[1])
     want = torch.bfloat16 if fused else E.dtype
+    if fused:
+        base_gram = fused_base(base_gram)
     for g in groups:
         if g.rating.dtype != want:
             raise ValueError(
@@ -180,7 +211,8 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
         for j in range(g.other_idx.shape[0]):
             oi, rr, cnt = g.other_idx[j], g.rating[j], g.entity_cnt[j]
             if fused:
-                rows = bucket_fused_rows(F_g, oi, rr, cnt.to(E.dtype), lam)
+                rows = bucket_fused_rows(F_g, oi, rr, cnt.to(E.dtype), lam,
+                                         alpha, base_gram)
             else:
                 rows = bucket_solve_rows(F_g, oi, rr, cnt, lam, alpha,
                                          base_gram, E.dtype, gather_bf16)

@@ -54,6 +54,7 @@ from ycnr_tpu_torch.models.bucketed_phase import (
     bucket_fused_rows,
     bucket_normal_eq,
     bucket_solve_rows,
+    fused_base,
     uses_fused,
 )
 from ycnr_tpu_torch.ops import fused_gram
@@ -468,8 +469,10 @@ def decoded_blocks(groups, device, rdt, cnt_dtype, prefetch: int,
 def block_rows(F_g, oi, rr, cntf, lam, alpha, base_gram, dtype,
                gather_bf16: bool, fused: bool) -> torch.Tensor:
     """One decoded block's solved rows in ``dtype``: the resident phase's
-    block step (``phase_bucketed``)."""
-    rows = (bucket_fused_rows(F_g, oi, rr, cntf, lam) if fused else
+    block step (``phase_bucketed``). On the fused branch ``base_gram`` is
+    the phase's ``fused_base``."""
+    rows = (bucket_fused_rows(F_g, oi, rr, cntf, lam, alpha, base_gram)
+            if fused else
             _gather_solve(F_g, oi, rr, cntf, base_gram, lam, alpha, dtype,
                           gather_bf16))
     return rows.to(dtype)
@@ -484,6 +487,8 @@ def _phase(E, F, groups, lam, alpha, base_gram, gather_bf16: bool,
     F_g = F.to(torch.bfloat16) if gather_bf16 else F
     fused = uses_fused(E.device, E.dtype, alpha, gather_bf16, E.shape[1])
     rdt = torch.bfloat16 if fused else E.dtype
+    if fused:
+        base_gram = fused_base(base_gram)
     for gi, b, oi, rr, cntf, eid in decoded_blocks(
             groups, E.device, rdt, E.dtype, prefetch, chunk_blocks):
         rows = block_rows(F_g, oi, rr, cntf, lam, alpha, base_gram, E.dtype,

@@ -57,7 +57,8 @@ def _find_nvcc() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
     lib.ycnr_spd_solve.argtypes = [p, p, p, i, i, p]
     lib.ycnr_spd_solve.restype = i
     lib.ycnr_fused_scores.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
@@ -70,6 +71,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ycnr_fused_gram.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, ll,
                                     i, p]
     lib.ycnr_fused_gram.restype = i
+    lib.ycnr_fused_gram_weighted.argtypes = [p, p, p, p, p, ll, i, i, i, i,
+                                             ll, i, p, p, f, f]
+    lib.ycnr_fused_gram_weighted.restype = i
     return lib
 
 

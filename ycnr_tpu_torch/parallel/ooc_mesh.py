@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ycnr_tpu_torch.models.base import scatter_add_
-from ycnr_tpu_torch.models.bucketed_phase import uses_fused
+from ycnr_tpu_torch.models.bucketed_phase import fused_base, uses_fused
 from ycnr_tpu_torch.models.ooc import (block_rows, decoded_blocks,
                                        gather_normal_eq, wire_tensor)
 from ycnr_tpu_torch.ops.fused_gram import fused_gram
@@ -356,6 +356,8 @@ def _user_phase(U, V, wire, rows_of, lam, alpha, base_gram,
     F_g = V.to(torch.bfloat16) if gather_bf16 else V
     fused = uses_fused(U.device, U.dtype, alpha, gather_bf16, U.shape[1])
     rdt = torch.bfloat16 if fused else U.dtype
+    if fused:
+        base_gram = fused_base(base_gram)
     for gi, b, oi, rr, cntf, _ in decoded_blocks(
             wire.ugroups, U.device, rdt, U.dtype, _PREFETCH, chunk_blocks):
         U[rows_of[gi][b]] = block_rows(F_g, oi, rr, cntf, lam, alpha,
@@ -369,7 +371,9 @@ def _item_phase(mesh, U, wire, n_items: int, lam, alpha, base_gram,
     """Partial per-item normal equations from this rank's item-view
     blocks, then the all-reduce and one solve over every item. An item
     sits in one block of a rank's wire; padding entities add zeros to the
-    trash row ``n_items``."""
+    trash row ``n_items``. The fused branch's partials are weighted for
+    iALS but take no base Gram and no ridge: ``psum_solve`` adds those
+    after the all-reduce."""
     k, dt = U.shape[1], U.dtype
     F_g = U.to(torch.bfloat16) if gather_bf16 else U
     fused = uses_fused(U.device, dt, alpha, gather_bf16, k)
@@ -378,7 +382,7 @@ def _item_phase(mesh, U, wire, n_items: int, lam, alpha, base_gram,
     b = U.new_zeros(n_items + 1, k)
     for _, _, oi, rr, _, eid in decoded_blocks(
             wire.igroups, U.device, rdt, dt, _PREFETCH, chunk_blocks):
-        dA, db = (fused_gram(F_g, oi, rr) if fused else
+        dA, db = (fused_gram(F_g, oi, rr, alpha=alpha) if fused else
                   gather_normal_eq(F_g, oi, rr, alpha, dt, gather_bf16))
         scatter_add_(A, eid, dA)
         scatter_add_(b, eid, db)
