@@ -1073,6 +1073,7 @@ def reset_launches():
     spd_solve.body_launches.update(dict.fromkeys(spd_solve.body_launches, 0))
     row_gather.take_launches = 0
     fused_gram.weighted_launches = 0
+    fused_gram.split_launches = fused_gram.part_bytes = 0
     gram.guarded_solves = 0
 
 

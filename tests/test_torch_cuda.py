@@ -872,6 +872,75 @@ def test_rank192_bucketed_epoch_takes_the_wide_body(dev):
                                    atol=1e-3 * y.abs().max().item())
 
 
+def test_rank256_phase_splits_its_long_lists(dev):
+    """One rank-256 ALS-WR item phase through ``phase_bucketed`` on blocks
+    of fewer entities than the wide body's fill, with lists of 2,500-6,000
+    slots, so that every block splits: each block's A within F64_REL of a
+    float64 sum, the phase's rows as the plain path's on the CPU,
+    ``split_launches`` and ``part_bytes`` as ``_parts`` gives them, and
+    one ``part_sum`` span a block inside its ``normal_eq``."""
+    from unittest import mock
+
+    from ycnr_tpu_torch.models import bucketed_phase as bp
+    from ycnr_tpu_torch.ops.bucketed import build_bucketed
+    from ycnr_tpu_torch.utils import profiling as prof
+
+    rng = np.random.default_rng(256)
+    n_items, n_users, k, lam = 60, 8000, 256, 0.065
+    cnt = rng.integers(2500, 6001, n_items)
+    i = np.repeat(np.arange(n_items), cnt)
+    u = np.concatenate([rng.choice(n_users, c, replace=False) for c in cnt])
+    r = (rng.integers(1, 11, len(u)) * 0.5).astype(np.float32)
+    groups = build_bucketed(i, u, r, n_items, n_users, 32, k, max_groups=2)
+    shapes = [g.other_idx.shape[1:] for g in groups
+              for _ in range(g.other_idx.shape[0])]
+    parts = [fg._parts(ne, R, fg.fill_blocks(k))[0] for ne, R in shapes]
+    assert all(ne < 264 and R >= 2048 and s > 1
+               for (ne, R), s in zip(shapes, parts))
+    F = torch.zeros(n_users + 1, k)
+    F[:-1] = 0.1 * torch.randn(n_users, k,
+                               generator=torch.Generator().manual_seed(1))
+    calls = []
+
+    def recording(table, idx, rat, reg=None, **kw):
+        A, b = real(table, idx, rat, reg, **kw)
+        calls.append((table, idx, rat, reg, A.clone(), b.clone()))
+        return A, b
+
+    real = bp.fused_gram
+    dg = bp.device_bucketed(groups, device=dev, rating_dtype=torch.bfloat16)
+    counts0 = (fg.launches, fg.split_launches, fg.part_bytes)
+    prof.drain()
+    prof.enable()
+    try:
+        with mock.patch.object(bp, "fused_gram", recording):
+            got = bp.phase_bucketed(torch.zeros(n_items + 1, k, device=dev),
+                                    F.to(dev), dg, lam, gather_bf16=True)
+        torch.cuda.synchronize()
+    finally:
+        prof.disable()
+    spans = prof.drain().spans
+    assert (fg.launches - counts0[0], fg.split_launches - counts0[1],
+            fg.part_bytes - counts0[2]) == (
+        len(shapes), len(shapes),
+        sum(fg.part_bytes_of(ne, s, k) for (ne, _), s in zip(shapes, parts)))
+    by_id = {s.id: s for s in spans}
+    sums = [s for s in spans if s.name == "part_sum"]
+    assert len(sums) == len(shapes)
+    assert all(by_id[s.parent].name == "normal_eq" for s in sums)
+    assert len(calls) == len(shapes)
+    for table, idx, rat, reg, A, b in calls:
+        assert max(fg.fused_gram_f64_error(table, idx, rat, reg, A, b)) <= \
+            fg.F64_REL
+        assert torch.equal(A, A.transpose(1, 2))
+    want = bp.phase_bucketed(torch.zeros(n_items + 1, k), F,
+                             bp.device_bucketed(groups, device="cpu"), lam,
+                             gather_bf16=True)
+    assert bool(torch.isfinite(got).all()) and not bool(got[-1].any())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-3,
+                               atol=1e-3 * want.abs().max().item())
+
+
 def test_cli_train_and_recommend_all_fused_on_the_card(dev, tmp_path,
                                                        capsys):
     """python -m ycnr_tpu_torch on the card (the default device): train a

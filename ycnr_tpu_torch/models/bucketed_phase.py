@@ -195,7 +195,9 @@ def phase_bucketed(E: torch.Tensor, F: torch.Tensor,
     Each block records two spans (``utils/profiling.span``), in those two
     functions: ``normal_eq`` (the gather and the normal equations, with
     the ridge on the fused branch) and ``solve``; the rows' write-back
-    lies in the phase's span alone.
+    lies in the phase's span alone. A fused block whose lists are cut
+    into parts also records ``part_sum`` (the parts' sum) inside its
+    ``normal_eq``.
     """
     F_g = F.to(torch.bfloat16) if gather_bf16 else F
     fused = uses_fused(E.device, E.dtype, alpha, gather_bf16, E.shape[1])

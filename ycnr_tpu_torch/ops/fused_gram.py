@@ -1,5 +1,5 @@
 """Fused gather -> Gram with the ridge: the wrapper of
-``csrc/fused_gram.cu``, its plain version and a launch count.
+``csrc/fused_gram.cu``, its plain version and launch counts.
 
 Counterpart of ``tools/probe_gather.py:pallas_fused_gram`` (T4). For
 every entity e of a block, from the bf16 factor table and the entity's
@@ -98,6 +98,7 @@ from typing import Optional
 import torch
 
 from ycnr_tpu_torch.ops import _build
+from ycnr_tpu_torch.utils.profiling import span
 
 MAX_W = 256  # the kernel's width limit, K1's too
 NARROW_W = 128  # the widest rows of the 4-warp body; wider: the wide body
@@ -115,6 +116,10 @@ _MIN_PART = 256
 
 launches = 0  # kernel launches since the last reset
 weighted_launches = 0  # of them, in the weighted mode
+split_launches = 0  # of them, with s > 1 parts (``_parts``), summed after
+# bytes of those calls' partial A and b: written by the kernel, then read
+# back by the sum (``part_bytes_of``), since the same reset
+part_bytes = 0
 
 # The kernel's largest error against a float64 sum, relative to
 # |F|^T|F| + reg I (``fused_gram_f64_error``), that its checks allow:
@@ -251,6 +256,13 @@ def _parts(ne: int, R: int, fill: int = _FILL_BLOCKS):
     return -(-R // r_part), r_part
 
 
+def part_bytes_of(ne: int, s: int, w: int) -> int:
+    """Bytes of partials that a call of ne entities cut into s > 1 parts
+    moves at width w: each part's f32 A [w, w] and b [w], written once by
+    the kernel and read once by the sum; 0 for s = 1."""
+    return 0 if s == 1 else 2 * ne * s * (w * w + w) * 4
+
+
 def fused_gram_cuda(table: torch.Tensor, idx: torch.Tensor,
                     rat: torch.Tensor, reg=None, *,
                     alpha: Optional[float] = None,
@@ -262,7 +274,7 @@ def fused_gram_cuda(table: torch.Tensor, idx: torch.Tensor,
     None. ``alpha`` selects the weighted mode (w <= ``NARROW_W``): reg one
     float or None, ``base`` [w, w] f32 the base Gram (symmetric) or None.
     """
-    global launches, weighted_launches
+    global launches, weighted_launches, split_launches, part_bytes
     dev = table.device
     ridge = 0.0  # the weighted mode's ridge
     if alpha is None:
@@ -342,10 +354,13 @@ def fused_gram_cuda(table: torch.Tensor, idx: torch.Tensor,
         weighted_launches += 1
     if one:
         return A, b
+    split_launches += 1
+    part_bytes += part_bytes_of(ne, s, w)
     # the same reduction order for every entry: A stays bit-symmetric; the
     # base Gram and the ridge go on once, after the parts are summed
-    return _finish(A.view(ne, s, w, w).sum(1), b.view(ne, s, w).sum(1),
-                   base, diag)
+    with span("part_sum"):
+        return _finish(A.view(ne, s, w, w).sum(1), b.view(ne, s, w).sum(1),
+                       base, diag)
 
 
 def _finish(A, b, base, diag):
