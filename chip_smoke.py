@@ -71,12 +71,12 @@ Run from the repository root:  python3 chip_smoke.py
     ``similar`` / ``precompute_similar`` against a float64 cosine,
     ``recommend_cold``;
 15. K1's tiled body (64 < n <= 256) at n = 65, 96, 127, 128, 129, 160,
-    192, 250 and 256 on 20,000 guarded systems (4,096 at the five sizes
-    not timed) against a float64 solve
+    192, 193, 224, 250 and 256 on 20,000 guarded systems (4,096 at the six
+    sizes not timed) against a float64 solve
     (within cond(A) n 2^-24 on the first 512), padding rows exactly 0, and
     on 64 well-conditioned systems against its plain-torch mirror
     (``tests/k1_tiled_mirror.py``, 1e-5); timed at n = 96, 128,
-    192 and 256 as in item 3 (run right after item 3);
+    192, 224 and 256 as in item 3 (run right after item 3);
 16. ALS-WR at ranks 128 and 192 with bf16 gathers through ``train()`` on
     the ML-20M-shaped set, 2 epochs each: ``fused_gram`` (at 192 its wide
     body; no ``row_gather``) -> K1's tiled body; RMSE
@@ -399,8 +399,8 @@ def k1_times(A, b, iters: int) -> dict:
 # K1's tiled body: the sizes held to float64 and to its mirror, and the
 # sizes timed (every rank from 65 to 256 runs fused_gram + K1, 128 and
 # 192 through train(), 256 one epoch; fold-in at 192 and 256)
-K1_WIDE_NS = (65, 96, 127, 128, 129, 160, 192, 250, 256)
-K1_TIMED_NS = (96, 128, 192, 256)
+K1_WIDE_NS = (65, 96, 127, 128, 129, 160, 192, 193, 224, 250, 256)
+K1_TIMED_NS = (96, 128, 192, 224, 256)
 K1_UNTIMED_B = 4_096  # systems held to float64 at the sizes not timed
 # the kernel against its plain-torch mirror (tests/k1_tiled_mirror.py) on
 # well-conditioned systems: the same operations in the same order, the

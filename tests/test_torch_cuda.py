@@ -88,11 +88,13 @@ def _guarded_spd(B, n, seed, dev):
     return A.contiguous(), b.contiguous()
 
 
-@pytest.mark.parametrize("B", [1, 257, 2000])
-@pytest.mark.parametrize("n", [65, 96, 128, 129, 192, 256])
+@pytest.mark.parametrize("B", [1, 128, 130, 257, 2000])
+@pytest.mark.parametrize("n", [65, 96, 128, 129, 192, 193, 224, 255, 256])
 def test_k1_wide_within_cholesky_forward_error(dev, n, B):
     """The tiled body (n > 64) against a float64 solve, within cond(A) n
-    2^-24 per system; padding systems exactly 0."""
+    2^-24 per system; padding systems exactly 0. B + 3 systems a launch:
+    131 and 133 are one short of a wave of one block an SM on a 132-SM
+    card and one past it."""
     A, b = _guarded_spd(B + 3, n, n + B, dev)
     before = sp.launches
     x = sp.spd_solve(A, b)
@@ -108,7 +110,8 @@ def test_k1_wide_within_cholesky_forward_error(dev, n, B):
     assert torch.all(x[:3] == 0)
 
 
-@pytest.mark.parametrize("n", [65, 96, 127, 128, 129, 160, 192, 250, 256])
+@pytest.mark.parametrize("n", [65, 96, 127, 128, 129, 160, 192, 193, 224,
+                               250, 255, 256])
 def test_k1_tiled_matches_its_mirror(dev, n):
     """The tiled body against its plain-torch mirror
     (tests/k1_tiled_mirror.py) on the same well-conditioned
@@ -127,11 +130,11 @@ def test_k1_tiled_matches_its_mirror(dev, n):
     assert torch.all(x[:3] == 0) and torch.all(xm[:3] == 0)
 
 
-@pytest.mark.parametrize("n", [65, 127, 128, 250])
+@pytest.mark.parametrize("n", [65, 127, 128, 250, 255, 256])
 def test_k1_tiled_unaligned_a_takes_the_4_byte_copies(dev, n):
-    """A whose base is 4 bytes past a 16-byte boundary (and, at n 65, 127
-    and 250, rows that are not whole 16-byte chunks) is copied 4 bytes at
-    a time: the same x as the aligned copy, bit for bit."""
+    """A whose base is 4 bytes past a 16-byte boundary (and, at n 65, 127,
+    250 and 255, rows that are not whole 16-byte chunks) is copied 4 bytes
+    at a time: the same x as the aligned copy, bit for bit."""
     A, b = _spd(40, n, n, dev)
     buf = torch.empty(A.numel() + 1, device=dev)
     Au = buf[1:].view_as(A)
@@ -155,6 +158,35 @@ def test_k1_body_launches_count_each_body(dev):
     assert sp.body_launches["warp"] == before[0]["warp"] + 1
     assert sp.body_launches["tiled"] == before[0]["tiled"] + 3
     assert sp.launches == before[1] + 4
+
+
+def test_k1_tiled_body_at_the_largest_netflix_block(dev):
+    """The largest K1 call of a netflix-als-r256.train epoch: 3,408
+    guarded n-256 systems in one launch, padding systems (I x = 0) among
+    them. Every live system within cond(A) n 2^-24 of a float64 solve,
+    every padding system exactly 0."""
+    B, n = 3408, 256
+    A, b = _guarded_spd(B, n, 20, dev)
+    pad = torch.arange(0, B, 97, device=dev)
+    A[pad] = torch.eye(n, device=dev)
+    b[pad] = 0
+    before = sp.body_launches["tiled"]
+    x = sp.spd_solve(A, b)
+    torch.cuda.synchronize()
+    assert sp.body_launches["tiled"] == before + 1
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    live[:3] = False
+    live[pad] = False
+    assert torch.all(x[~live] == 0)
+    for s in torch.arange(B, device=dev)[live].split(512):
+        Ad = A[s].double()
+        ref = sp.spd_solve_reference(Ad, b[s].double())
+        rel = ((x[s].double() - ref).abs().amax(1)
+               / ref.abs().amax(1).clamp_min(1e-300))
+        w = torch.linalg.eigvalsh(Ad)
+        bound = w[:, -1] / w[:, 0] * n * 2.0 ** -24
+        assert bool((rel <= bound).all()), (rel.max().item(),
+                                            bound.min().item())
 
 
 def _k2_inputs(u_b, k, n_seg, seed, dev):

@@ -176,7 +176,7 @@ def test_wrapper_refuses_what_k1_does_not_take():
 
 SMEM_BYTES = 232_448  # what one block may use on Hopper (227 KB)
 SM_SMEM_BYTES = 233_472  # an SM's (228 KB); 1 KB of it is reserved a block
-WIDE_NS = [65, 96, 127, 128, 129, 160, 192, 250, 256]
+WIDE_NS = [65, 96, 127, 128, 129, 160, 192, 193, 224, 250, 256]
 
 
 def _cu_constant(name: str) -> str:
@@ -343,12 +343,13 @@ def test_tiled_guarded_ill_conditioned_systems_against_float64(n):
     assert rel.max() < 1e-3  # chip_smoke's K1_RTOL
 
 
-@pytest.mark.parametrize("n,blocks", [(128, 4), (192, 2), (256, 1)])
+@pytest.mark.parametrize("n,blocks", [(128, 4), (192, 2), (193, 1),
+                                      (224, 1), (256, 1)])
 def test_tiled_shared_memory_and_blocks_an_sm(n, blocks):
     """TiledCfg's shared memory is the lower tiles and the body's vectors,
     fits a block's shared memory at every n up to MAX_N (the full square
     would not at n 256) and gives 4 / 2 / 1 blocks an SM at n 128 / 192 /
-    256; the thread count is 32 a tile column."""
+    193-256; the thread count is 32 a tile column."""
     T, ld = _tile_constants()
     assert (T, ld) == (TILE, 36) == (32, 36)
     assert int(_cu_constant("kMaxN")) == sp.MAX_N == 256
@@ -362,7 +363,9 @@ def test_tiled_shared_memory_and_blocks_an_sm(n, blocks):
 
 @pytest.mark.parametrize("n,want", [(1, "warp"), (64, "warp"),
                                     (65, "tiled"), (128, "tiled"),
-                                    (129, "tiled"), (256, "tiled")])
+                                    (129, "tiled"), (192, "tiled"),
+                                    (193, "tiled"), (224, "tiled"),
+                                    (256, "tiled")])
 def test_body_routing(n, want):
     """ops/spd_solve.body follows the C entry point: the warp body to n =
     64, the tiled body above; body_launches has those keys."""

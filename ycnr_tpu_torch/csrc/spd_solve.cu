@@ -115,6 +115,27 @@
 // (the 8 diagonal factorizations 43k, its 8 panel tiles 29k, 7
 // diagonal-tile updates 23k) while the other warps wait 14k at barriers;
 // at n = 128 four blocks share an SM, each 104k.
+//   Two changes leave every operation and its order alone (x bit for
+// bit): warp 0 commits its first diagonal tile's copies before it loads
+// b, and the back substitution reads each tile's rows before the barrier
+// that publishes x_i. Timed against the body without them (H100 80GB
+// HBM3, 700 W, B = 20,000, one call): n 256 8.41 ms against 8.65, n 224
+// 6.89 against 7.05, n 192 3.42 against 3.60, n 128 1.42 against 1.47, n
+// 96 0.914 against 0.917; clock64 at n 256, B 2,640: 110.2k cycles a
+// system against 114.6k, the gain in the first copies (warp 0 waits 9.5k
+// cycles for its first tile against 14.0k).
+//   What holds it is shared memory. A warp-wide 16-byte load costs the SM
+// 2.5 (one address) to 4.1 (32 addresses) cycles of its shared-memory
+// pipe, so a 4 x 8 tile update takes ~446 cycles of it however many warps
+// run it, and warp 0's chain and the other warps' panels and updates each
+// fill ~95k of the 114k cycles. Tried and dropped (builds not kept): a pool
+// of 12-15 warps fed from a dependency list by per-tile step counts, the
+// chain's warp alone on its scheduler, 9.9-10.0 ms (beside the pool the
+// chain's loads get a share of the pipe: a diagonal-tile update 5k cycles
+// against 3k); the pool held back while the chain factors, 13.7-27.0 ms;
+// two trailing tiles (8 x 8 a lane) or two panel rows a lane, 9.3-12.5 ms
+// (255 registers and spills); the pivot handed on two columns at a time
+// at 16 warps, 8.29-8.35 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -576,15 +597,16 @@ spd_solve_tiled_kernel(const float* __restrict__ A,
     }
   };
 
-  // Copies in three groups: the first diagonal tile and b (warp 0), this
-  // warp's tiles of the first panel, its tiles of the first update.
+  // Copies in three groups: the first diagonal tile (warp 0, which then
+  // loads b), this warp's tiles of the first panel, its tiles of the first
+  // update.
+  if (warp == 0) load_tile(0, 0);
+  cp_async_commit();
   if (warp == 0) {
-    load_tile(0, 0);
     for (int c = lane; c < C::kN; c += 32) {
       bs[c] = c < n ? b[sys * n + c] : 0.0f;
     }
   }
-  cp_async_commit();
   if (warp < NT - 1) load_tile(warp + 1, 0);
   cp_async_commit();
   if (warp == 0) load_tile(1, 1);
@@ -629,6 +651,8 @@ spd_solve_tiled_kernel(const float* __restrict__ A,
   // x_i = L_ii^-T y_i, then every tile j < i loses L_ij^T x_i.
   float y = bs[warp * T + q];
   for (int i = NT - 1; i >= 0; --i) {
+    float l[T];  // L_ij[r][q] for r = 0 .. T - 1
+    if (warp < i) lds(tile(i, warp) + q * LD, l);
     if (warp == i) {
       bs[i * T + q] = y;
       __syncwarp();
@@ -645,8 +669,7 @@ spd_solve_tiled_kernel(const float* __restrict__ A,
     }
     __syncthreads();  // x_i
     if (warp < i) {
-      float l[T], xv[T];
-      lds(tile(i, warp) + q * LD, l);  // L_ij[r][q] for r = 0 .. T - 1
+      float xv[T];
       lds(xs + i * T, xv);
 #pragma unroll
       for (int r = 0; r < T; ++r) y = fmaf(-l[r], xv[r], y);

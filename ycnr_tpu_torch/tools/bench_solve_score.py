@@ -1,7 +1,7 @@
 """Device time of K1 (batched SPD solve) and K2 (fused masked scorer) at
 the main path's shapes, over CUDA graphs (no host launch cost).
 
-K1 at n = 64 (the warp body) and n = 96, 128, 192 and 256 (the tiled
+K1 at n = 64 (the warp body) and n = 96, 128, 192, 224 and 256 (the tiled
 body: rank 128 is the bench's ``--rank 128``, ranks above 128 the einsum
 route) with B = 8, 256 and 20,000 systems (the bucketed epoch calls it with
 anything from 8 systems to tens of thousands); K2 at one serving block of
@@ -26,7 +26,7 @@ from ycnr_tpu_torch.ops.fused_topn import SEG_LEN, fused_scores_cuda
 from ycnr_tpu_torch.ops.spd_solve import spd_solve_cuda
 from ycnr_tpu_torch.tools.probe_gather import device_name, graph_ms
 
-K1_NS = (64, 96, 128, 192, 256)
+K1_NS = (64, 96, 128, 192, 224, 256)
 K1_BATCHES = (8, 256, 20_000)
 K2_USERS, K2_ITEMS, K2_RANK = 4096, 26_744, 64
 
